@@ -1,0 +1,251 @@
+"""The 4-stage generative 3D hand tracker (paper §3.1, Fig. 2).
+
+Per frame, the optimization happens in 4 consecutive steps, each an
+offloadable unit (Multi-Step) or fused into one (Single-Step):
+
+  1. ``preprocess`` — extract the bounding box B around the previous
+     solution, mask the observed depth map.
+  2. ``spawn``      — initialize the particle swarm around h_t ("particles
+     are initialized around the solution of the previous frame").
+  3. ``optimize``   — run the PSO generations; the population evaluation
+     is the GPGPU-heavy part (the CUDA kernel, or the plain objective).
+  4. ``refine``     — select the global best, renormalize the quaternion,
+     apply temporal smoothing; emit h_{t+1}.
+
+The serial frame dependency (Fig. 3 category A) lives *outside* this
+module: ``track_frame`` maps (h_t, frame) -> h_{t+1}, and whoever drives
+it must wait for each frame's result before submitting the next.
+
+PyTorch runs eagerly, so the generations are a Python loop.  Nothing in
+it reads a device value on the host: the frame's one synchronization is
+``Tracker.step`` reading the score at the end.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from repro_torch.core import handmodel, objective, pso
+from repro_torch.core.camera import Camera
+from repro_torch.core.stages import CLIENT, DataItem, Stage, StagedComputation
+from repro_torch.kernels import ops as kernel_ops
+
+
+@dataclasses.dataclass(frozen=True)
+class TrackerConfig:
+    camera: Camera = dataclasses.field(default_factory=Camera)
+    pso: pso.PSOConfig = dataclasses.field(default_factory=pso.PSOConfig)
+    pos_range: float = 0.10  # search-box half width around h_t, meters
+    quat_range: float = 0.25
+    smoothing: float = 0.15  # exponential temporal smoothing on h
+    bbox_half_width: float = 0.25  # meters around previous depth (B)
+    # Route the evaluation through the render_score kernel wrapper on the
+    # CPU too (its plain version there).  On the card it always is.
+    use_kernel: bool = False
+
+
+def _make_eval_fn(
+    cfg: TrackerConfig, d_o: torch.Tensor, mask: torch.Tensor
+) -> pso.EvalFn:
+    if cfg.use_kernel or d_o.is_cuda:
+        rays = cfg.camera.rays_flat(d_o.device)
+        d_flat, m_flat = d_o.reshape(-1), mask.reshape(-1)
+
+        def eval_fn(hs: torch.Tensor) -> torch.Tensor:
+            spheres = handmodel.pack_spheres(hs)
+            return kernel_ops.render_score(spheres, rays, d_flat, m_flat)
+
+        return eval_fn
+
+    def eval_fn(hs: torch.Tensor) -> torch.Tensor:
+        return objective.batched_objective(hs, d_o, cfg.camera, mask)
+
+    return eval_fn
+
+
+# ---------------------------------------------------------------------------
+# The four stages as standalone functions
+# ---------------------------------------------------------------------------
+
+
+def stage_preprocess(
+    cfg: TrackerConfig, h_prev: torch.Tensor, depth: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stage 1: ROI/bounding-box extraction. Returns (depth, mask)."""
+    mask = objective.bounding_box_mask(depth, h_prev[2], cfg.bbox_half_width)
+    return depth, mask
+
+
+def stage_spawn(
+    cfg: TrackerConfig, generator: Optional[torch.Generator],
+    h_prev: torch.Tensor, eval_fn: pso.EvalFn,
+) -> Tuple[pso.SwarmState, torch.Tensor, torch.Tensor]:
+    """Stage 2: swarm initialization around h_t. Returns (state, lo, hi)."""
+    lo = handmodel.parameter_lower_bounds(h_prev, cfg.pos_range, cfg.quat_range)
+    hi = handmodel.parameter_upper_bounds(h_prev, cfg.pos_range, cfg.quat_range)
+    state = pso.init_swarm(h_prev, lo, hi, eval_fn, cfg.pso, generator=generator)
+    return state, lo, hi
+
+
+def stage_optimize(
+    cfg: TrackerConfig,
+    state: pso.SwarmState,
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    eval_fn: pso.EvalFn,
+    generator: Optional[torch.Generator],
+) -> pso.SwarmState:
+    """Stage 3: the PSO generations — the GPGPU-heavy step."""
+    for _ in range(cfg.pso.num_generations):
+        state = pso.swarm_step(
+            state, lo, hi, eval_fn, cfg.pso,
+            project_fn=handmodel.normalize_configuration, generator=generator,
+        )
+    return state
+
+
+def stage_refine(
+    cfg: TrackerConfig, state: pso.SwarmState, h_prev: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stage 4: decode the solution + temporal smoothing."""
+    h = handmodel.normalize_configuration(state.global_best)
+    h = (1.0 - cfg.smoothing) * h + cfg.smoothing * h_prev
+    h = handmodel.normalize_configuration(h)
+    return h, state.global_best_score
+
+
+# ---------------------------------------------------------------------------
+# Fused per-frame step (Single-Step granularity)
+# ---------------------------------------------------------------------------
+
+
+def make_track_frame(
+    cfg: TrackerConfig, device: torch.device | str = "cuda"
+) -> Callable:
+    """Build the (generator, h_prev, depth) -> (h_next, score) step on
+    ``device``.  ``generator`` is a ``torch.Generator`` on that device;
+    h_prev and depth may be tensors or arrays, and are moved there."""
+    device = torch.device(device)
+
+    def track_frame(generator: Optional[torch.Generator], h_prev, depth):
+        h_prev = torch.as_tensor(h_prev, dtype=torch.float32, device=device)
+        depth = torch.as_tensor(depth, dtype=torch.float32, device=device)
+        d_o, mask = stage_preprocess(cfg, h_prev, depth)
+        eval_fn = _make_eval_fn(cfg, d_o, mask)
+        state, lo, hi = stage_spawn(cfg, generator, h_prev, eval_fn)
+        state = stage_optimize(cfg, state, lo, hi, eval_fn, generator)
+        return stage_refine(cfg, state, h_prev)
+
+    return track_frame
+
+
+class Tracker:
+    """Stateful convenience wrapper holding h_t across frames."""
+
+    def __init__(self, cfg: TrackerConfig, h0=None, seed: int = 0,
+                 device: torch.device | str = "cuda"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.h = (handmodel.default_pose(device=self.device) if h0 is None
+                  else torch.as_tensor(h0, dtype=torch.float32, device=self.device))
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._step = make_track_frame(cfg, self.device)
+
+    def step(self, depth) -> Tuple[torch.Tensor, float]:
+        self.h, score = self._step(self.generator, self.h, depth)
+        return self.h, float(score)
+
+
+# ---------------------------------------------------------------------------
+# Byte/FLOP-annotated staged description (for the offload engine)
+# ---------------------------------------------------------------------------
+
+
+def _eval_flops_per_generation(cfg: TrackerConfig) -> float:
+    """Analytic FLOP count of one population evaluation.
+
+    Per (particle, pixel, sphere): dot products + discriminant + sqrt
+    ~= 14 fused ops; the min-reduction and scoring add ~3 per (particle,
+    pixel). See csrc/render_score.cu for the exact expression the
+    kernel evaluates."""
+    n = cfg.pso.num_particles
+    p = cfg.camera.num_pixels
+    s = handmodel.NUM_SPHERES
+    fk_flops = n * 600.0 * 5  # forward kinematics per particle (tiny)
+    return n * p * (s * 14.0 + 3.0) + fk_flops
+
+
+def build_staged(
+    cfg: TrackerConfig, frame_nbytes: Optional[int] = None
+) -> StagedComputation:
+    """The Fig. 2 pipeline with measured byte sizes and analytic FLOPs.
+
+    ``frame_nbytes`` overrides the size of the sensor frame that crosses
+    the network (the paper ships RGB + depth at sensor resolution while
+    hypotheses are rendered at a reduced working resolution; see
+    sim/hardware.py PAPER_FRAME_BYTES)."""
+    cam = cfg.camera
+    n, d = cfg.pso.num_particles, handmodel.NUM_PARAMS
+    frame_bytes = (
+        frame_nbytes if frame_nbytes is not None else cam.num_pixels * 4
+    )
+    # ROI items are at the tracker's *working* resolution regardless of
+    # the sensor frame size that crosses the network.
+    roi_bytes = cam.num_pixels * 4
+    mask_bytes = cam.num_pixels  # bool mask
+    h_bytes = d * 4
+    swarm_bytes = (3 * n * d + 2 * n + d + 1 + 2) * 4  # SwarmState payload
+
+    gens = cfg.pso.num_generations
+    eval_flops = _eval_flops_per_generation(cfg)
+
+    sources = (
+        DataItem("frame_depth", frame_bytes, CLIENT),
+        DataItem("h_prev", h_bytes, CLIENT),
+        DataItem("rng_key", 8, CLIENT),
+    )
+    stages = (
+        Stage(
+            name="preprocess",
+            flops=cam.num_pixels * 4.0,
+            inputs=("frame_depth", "h_prev"),
+            outputs=(
+                DataItem("roi_depth", roi_bytes),
+                DataItem("roi_mask", mask_bytes),
+            ),
+            parallel_fraction=0.5,
+        ),
+        Stage(
+            name="spawn",
+            # init includes one population evaluation (scores of gen 0)
+            flops=n * d * 8.0 + eval_flops,
+            inputs=("rng_key", "h_prev", "roi_depth", "roi_mask"),
+            outputs=(DataItem("swarm_state", swarm_bytes),),
+            parallel_fraction=0.95,
+        ),
+        Stage(
+            name="optimize",
+            flops=gens * (eval_flops + n * d * 12.0),
+            inputs=("swarm_state", "roi_depth", "roi_mask"),
+            outputs=(DataItem("swarm_final", swarm_bytes),),
+            parallel_fraction=0.98,
+        ),
+        Stage(
+            name="refine",
+            flops=d * 30.0,
+            inputs=("swarm_final", "h_prev"),
+            outputs=(DataItem("h_next", h_bytes), DataItem("score", 4)),
+            parallel_fraction=0.0,
+        ),
+    )
+    comp = StagedComputation(
+        name="hand_tracker_frame",
+        sources=sources,
+        stages=stages,
+        results=("h_next", "score"),
+    )
+    comp.validate()
+    return comp

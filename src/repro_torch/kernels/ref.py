@@ -1,0 +1,40 @@
+"""Plain PyTorch oracle for the render_score kernel.
+
+Re-derives the quantity the kernel computes from the objective in
+``repro_torch.core.objective``.  ``render_score.render_score_sums``
+runs it for CPU tensors, and ``chip_smoke.py`` holds the CUDA kernel
+against it on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.objective import CLAMP_T, sphere_depth
+
+
+def render_score_sums(
+    spheres: torch.Tensor,  # (N, S, 4)
+    rays: torch.Tensor,  # (P, 3)
+    depth_obs: torch.Tensor,  # (P,)
+    mask: torch.Tensor,  # (P,)
+    *,
+    clamp_t: float = CLAMP_T,
+) -> torch.Tensor:
+    """Unnormalized masked clamped-L1 sums per particle, shape (N,)."""
+    d_h = sphere_depth(rays.float(), spheres.float())  # (N, P)
+    err = torch.clamp(torch.abs(d_h - depth_obs.float()), max=clamp_t)
+    return torch.sum(err * mask.float(), dim=-1)
+
+
+def render_score(
+    spheres: torch.Tensor,
+    rays: torch.Tensor,
+    depth_obs: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    clamp_t: float = CLAMP_T,
+) -> torch.Tensor:
+    """Normalized E_D per particle (mean over bbox pixels), shape (N,)."""
+    sums = render_score_sums(spheres, rays, depth_obs, mask, clamp_t=clamp_t)
+    return sums / torch.clamp(torch.sum(mask.float()), min=1.0)

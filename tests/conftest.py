@@ -93,3 +93,10 @@ except ModuleNotFoundError:
 
     sys.modules["hypothesis"] = _hyp
     sys.modules["hypothesis.strategies"] = _st
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card and nvcc; skips (with its reason) elsewhere",
+    )

@@ -1,0 +1,150 @@
+"""The port's objective and render/score kernel path against the JAX
+reference.
+
+Inputs are numpy arrays made from a seed and handed to both packages.
+Tolerances:
+* depth maps and E_D at 1e-5 absolute: the same float32 expressions on
+  both sides, apart from fusion and FMA contraction;
+* ``ops.render_score`` as ``tests/test_kernels.py`` holds the Pallas
+  kernel: rtol 2e-5 plus one silhouette-pixel flip per particle
+  (CLAMP_T / |B|), since a grazing ray's discriminant is ~0 and the
+  rounding of the dot product may flip hit and miss.  The JAX side runs
+  its Pallas kernel in interpret mode, as its own tests do.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import camera as jcam
+from repro.core import handmodel as jhm
+from repro.core import objective as jobj
+from repro.kernels import ops as jops
+from repro_torch.core import camera as tcam
+from repro_torch.core import objective as tobj
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+ATOL = 1e-5
+CAM_ARGS = dict(width=40, height=24, fx=36.0, fy=36.0, cx=19.5, cy=11.5)
+
+
+def _assert_scores_close(a, b, mask):
+    denom = max(float(np.asarray(mask, dtype=np.float32).sum()), 1.0)
+    atol = tobj.CLAMP_T / denom + 1e-6
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=2e-5, atol=atol)
+
+
+def _poses(n, distance=0.4):
+    """n configurations near a default pose (the test_kernels recipe)."""
+    hs = np.tile(np.asarray(jhm.default_pose(distance)), (n, 1))
+    for i in range(n):
+        hs[i, 0] += 0.02 * i
+        hs[i, 7 + i % 20] += 0.1 * i
+    return hs
+
+
+@functools.lru_cache(maxsize=None)
+def _population():
+    """numpy spheres and rendered depth maps of 32 poses (JAX side, jitted
+    once); the first n poses are the n-particle population."""
+    cam = jcam.Camera(**CAM_ARGS)
+    hs = jnp.asarray(_poses(32))
+    spheres = jax.jit(jax.vmap(jhm.pack_spheres))(hs)
+    maps = jax.jit(jax.vmap(lambda h: jobj.render_depth(h, cam)))(hs)
+    # writable copies: torch.from_numpy warns on read-only arrays
+    return np.array(spheres), np.array(cam.rays_flat()), np.array(maps)
+
+
+def _score_inputs(n):
+    """numpy (spheres, rays, observed depth, mask) for n particles."""
+    spheres, rays, maps = _population()
+    d_o = maps[n // 2].reshape(-1)
+    return spheres[:n], rays, d_o, d_o < 5.0
+
+
+def _observation():
+    """An observed depth map of a pose near the particles, plus noise."""
+    d = _population()[2][1]
+    return d + np.random.default_rng(0).normal(0, 0.003, d.shape).astype(np.float32)
+
+
+def test_sphere_depth_and_render_depth_match_reference():
+    cam_t = tcam.Camera(**CAM_ARGS)
+    spheres, rays, maps = _population()
+    spheres, maps = spheres[:5], maps[:5]
+    port = tobj.sphere_depth(torch.from_numpy(rays), torch.from_numpy(spheres))
+    ref = jax.jit(jax.vmap(jobj.sphere_depth, in_axes=(None, 0)))(
+        jnp.asarray(rays), jnp.asarray(spheres))
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=0, atol=ATOL)
+    port_maps = tobj.render_depth(torch.from_numpy(_poses(5)), cam_t)
+    assert port_maps.shape == (5, cam_t.height, cam_t.width)
+    np.testing.assert_allclose(port_maps.numpy(), maps, rtol=0, atol=ATOL)
+    assert float(port_maps.max()) == tobj.BACKGROUND_DEPTH  # background present
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_discrepancy_and_batched_objective_match_reference(with_mask):
+    cam_j, cam_t = jcam.Camera(**CAM_ARGS), tcam.Camera(**CAM_ARGS)
+    d_o = _observation()
+    mask = np.array(jobj.bounding_box_mask(jnp.asarray(d_o), 0.4)) if with_mask else None
+    hs = _poses(7) + np.float32(0.01)
+    t_mask = None if mask is None else torch.from_numpy(mask)
+    j_mask = None if mask is None else jnp.asarray(mask)
+    d_h = _population()[2][3]
+    np.testing.assert_allclose(
+        float(tobj.discrepancy(torch.from_numpy(d_h), torch.from_numpy(d_o), t_mask)),
+        float(jobj.discrepancy(jnp.asarray(d_h), jnp.asarray(d_o), j_mask)),
+        rtol=1e-6, atol=1e-7)
+    port = tobj.batched_objective(torch.from_numpy(hs), torch.from_numpy(d_o), cam_t, t_mask)
+    ref = jax.jit(lambda h, d, m: jobj.batched_objective(h, d, cam_j, m))(
+        jnp.asarray(hs), jnp.asarray(d_o), j_mask)
+    assert port.shape == (7,)
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=0, atol=ATOL)
+
+
+def test_bounding_box_mask_matches_reference():
+    d_o = _observation()
+    for center, half in ((0.4, 0.25), (0.45, 0.05), (9.0, 1.5)):
+        np.testing.assert_array_equal(
+            tobj.bounding_box_mask(torch.from_numpy(d_o), center, half).numpy(),
+            np.asarray(jobj.bounding_box_mask(jnp.asarray(d_o), center, half)))
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 13, 32])
+def test_render_score_matches_reference(n):
+    spheres, rays, d_o, mask = _score_inputs(n)
+    ref = jops.render_score(jnp.asarray(spheres), jnp.asarray(rays),
+                            jnp.asarray(d_o), jnp.asarray(mask))
+    port = tops.render_score(torch.from_numpy(spheres), torch.from_numpy(rays),
+                             torch.from_numpy(d_o), torch.from_numpy(mask))
+    assert port.shape == (n,) and port.dtype == torch.float32
+    _assert_scores_close(port, ref, mask)
+    # the oracle is the same function
+    _assert_scores_close(
+        tref.render_score(torch.from_numpy(spheres), torch.from_numpy(rays),
+                          torch.from_numpy(d_o), torch.from_numpy(mask)), ref, mask)
+
+
+def test_render_score_empty_mask_scores_zero():
+    spheres, rays, d_o, _ = _score_inputs(4)
+    zero = torch.zeros(d_o.shape, dtype=torch.bool)
+    port = tops.render_score(torch.from_numpy(spheres), torch.from_numpy(rays),
+                             torch.from_numpy(d_o), zero)
+    np.testing.assert_array_equal(port.numpy(), np.zeros(4, np.float32))
+
+
+def test_render_score_padding_is_invisible():
+    """Padding to the block grid changes nothing a caller can see: the
+    sums of padded particles and pixels are cropped or masked out."""
+    spheres, rays, d_o, mask = _score_inputs(5)
+    args = [torch.from_numpy(a) for a in (spheres, rays, d_o, mask)]
+    base = tops.render_score(*args)
+    for block_n, block_p in ((2, 128), (4, 256), (16, 1024)):
+        np.testing.assert_allclose(
+            tops.render_score(*args, block_n=block_n, block_p=block_p).numpy(),
+            base.numpy(), rtol=1e-6, atol=1e-7)
