@@ -22,7 +22,25 @@ Phases (any failure exits non-zero and prints no result line):
      time per frame;
   7. each kernel timed by CUDA events at the main path's shapes, beside
      its plain version and its bound on the card;
-  8. one {"kernels": [...]} line, then the {"ok": ...} line last.
+  8. the uplink: the phase-5 sequence streamed through the port's
+     ``DeltaStreamEncoder`` -> ``DeltaStreamDecoder`` on the card at
+     threshold 0 (every frame decodes bit-identical) and 0.01 m (every
+     pixel within it), and once with a packet lost (the forced keyframe
+     arrives within ``resync_bound``); ``change_density`` per transition
+     and the wire ratio; K3, K3b (B = 4) and K4 bit for bit against their
+     plain versions at 128x128 and at the unaligned 240x320, with a NaN
+     tile and a -0.0/+0.0 tile; each timed beside its bound;
+  9. the edge server's batched step at full width: 4 clients, each with
+     its own decoded frame and 64-particle population, scored by K1b
+     (each row equal to K1 on that client), updated by K2b at (4, 64, 27)
+     (each swarm equal to K2), and scored again; the fused launches timed
+     against 4 solo launches (per_client_vs_solo);
+ 10. one {"kernels": [...]} line with all seven kernels, then the
+     {"ok": ...} line last.
+
+Each path (the tracker, the uplink, the batched step) runs with the
+launch counts set to 0 just before it and read just after; a kernel of
+the path that was not launched fails the run.
 
 Needs one CUDA card and nvcc; there is no CPU fallback.
 """
@@ -375,6 +393,389 @@ def phase_timing(torch, rs, pu, inputs, device, k1_err, k2_err, launches, prof):
     ]
 
 
+# ---------------------------------------------------------------------------
+# The uplink (delta codec: K3, K3b, K4) and the edge server's batched step
+# (K1b, K2b).
+
+STREAM_THRESHOLDS = (0.0, 0.01)  # lossless, and above the 2 mm sensor noise
+CLIENTS = 4
+UPDATE_CONSTS = dict(inertia=0.7298, cognitive=1.49618, social=1.49618, velocity_clip=0.5)
+
+
+def _bit_equal(torch, a, b):
+    """Same shape, dtype and bits (NaN payloads and signed zeros included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def _value_err(torch, got, want):
+    """max |got - want|; NaN against NaN counts 0, NaN against a number inf."""
+    if got.numel() == 0:
+        return 0.0
+    if not got.is_floating_point():
+        return float((got.long() - want.long()).abs().max())
+    diff = torch.nan_to_num((got.double() - want.double()).abs(), nan=float("inf"))
+    diff = torch.where(torch.isnan(got) & torch.isnan(want), 0.0, diff)
+    return float(diff.max())
+
+
+def _device_ms(torch, fn, reps, names):
+    """Device time per call of fn (ms) by torch.profiler, summed over the
+    kernels whose names contain one of ``names``; None if it saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    total = sum(e.time_range.end - e.time_range.start for e in device
+                if any(n in e.name for n in names))
+    if not total:
+        log(f"[profile] no device activity named {names} in {reps} calls; the profiler "
+            f"saw {sorted({e.name for e in device})[:8]}")
+        return None
+    return total / reps / 1e3
+
+
+def _us(ms):
+    return "not measured" if ms is None else f"{ms * 1e3:.2f} us"
+
+
+def _wire_nbytes(cref, packet, shape):
+    """Bytes of one stream packet on the wire: a keyframe ships its raw
+    float32 plane, a delta ``encoded_nbytes_exact`` of its change mask.
+    For a threshold >= 0 a tile is changed exactly when its XOR words are
+    not all 0 (|f - r| > 0 means the bits differ), so the mask is read
+    off the payload."""
+    h, w = shape
+    if packet.kind == "key":
+        return h * w * 4
+    tiles = packet.payload.reshape(h // cref.DEFAULT_BLOCK_H, cref.DEFAULT_BLOCK_H,
+                                   w // cref.DEFAULT_BLOCK_W, cref.DEFAULT_BLOCK_W)
+    return cref.encoded_nbytes_exact((tiles != 0).any(dim=3).any(dim=1).float())
+
+
+def phase_uplink(torch, cref, frames):
+    """Stream the sequence through the port's encoder and decoder on the
+    card.  Returns the frames the 0.01 m stream decoded."""
+    t_count, h, w = frames.shape
+    raw = t_count * h * w * 4
+    decoded_lossy = None
+    for thr in STREAM_THRESHOLDS:
+        enc = cref.DeltaStreamEncoder(threshold=thr)
+        dec = cref.DeltaStreamDecoder()
+        wire, worst, decoded = 0, 0.0, []
+        for t in range(t_count):
+            packet = enc.encode(frames[t])
+            got = dec.decode(packet)
+            check(got is not None and got.is_cuda and got.shape == (h, w),
+                  f"stream at threshold {thr}: frame {t} did not decode on the card")
+            if thr == 0.0:
+                check(_bit_equal(torch, got, frames[t]),
+                      f"stream at threshold 0: frame {t} is not bit-identical to its source")
+            err = float((got - frames[t]).abs().max())
+            check(err <= thr, f"stream at threshold {thr}: frame {t} off by {err:.4g}")
+            worst = max(worst, err)
+            wire += _wire_nbytes(cref, packet, (h, w))
+            decoded.append(got)
+        density = cref.change_density(frames, threshold=thr)
+        check(density.shape == (t_count - 1,) and bool(torch.isfinite(density).all()),
+              "change_density is malformed")
+        log(f"[uplink] threshold {thr} m, keyframe every {enc.keyframe_interval}: "
+            f"{t_count} frames decoded on the card, max |decoded - source| {worst:.4g} m"
+            + (" (every frame bit-identical)" if thr == 0.0 else "")
+            + f"; wire {wire} B of {raw} B raw, ratio {wire / raw:.4f}")
+        log(f"[uplink] change_density at {thr} m per transition: "
+            + " ".join(f"{d:.4f}" for d in density.tolist())
+            + f" (mean {float(density.mean()):.4f})")
+        if thr > 0.0:
+            decoded_lossy = torch.stack(decoded)
+
+    lost = 5
+    enc = cref.DeltaStreamEncoder(keyframe_interval=t_count, resync_bound=4)
+    dec = cref.DeltaStreamDecoder()
+    resync = None
+    for t in range(t_count):
+        packet = enc.encode(frames[t])
+        if packet.seq == lost:
+            check(packet.kind == "delta", "the lost packet is not a delta")
+            enc.report_loss(lost)
+            continue
+        got = dec.decode(packet)
+        if packet.kind == "key" and packet.seq > lost and resync is None:
+            resync = packet.seq
+        if got is not None:
+            check(_bit_equal(torch, got, frames[t]), f"lossy stream: frame {t} decoded wrong")
+    check(resync is not None and resync - lost <= enc.resync_bound,
+          f"no keyframe within resync_bound {enc.resync_bound} of the loss (got {resync})")
+    check(enc.forced_keyframes == 1 and dec.nacks == resync - lost - 1,
+          f"forced keyframes {enc.forced_keyframes}, NACKs {dec.nacks}")
+    log(f"[uplink] packet {lost} lost: forced keyframe at packet {resync} "
+        f"(resync_bound {enc.resync_bound}), {dec.nacks} NACKs, "
+        f"{dec.decoded} of {t_count} frames decoded, each bit-identical")
+    return decoded_lossy
+
+
+def _codec_planes(torch, frames, h, w, device, seed):
+    """B = 4 (frame, ref) pairs of (h, w): consecutive frames of the
+    sequence in the top-left corner of a noisy background plane (10 m,
+    2 mm noise) where (h, w) is larger; tile (0, 0) moves by 0.2 m but
+    holds a NaN, and tile (1, 0) differs only by -0.0 against +0.0."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    planes = 10.0 + 0.002 * torch.randn((CLIENTS + 1, h, w), generator=gen, device=device)
+    fh, fw = min(h, frames.shape[1]), min(w, frames.shape[2])
+    planes[:, :fh, :fw] = frames[:CLIENTS + 1, :fh, :fw]
+    f, r = planes[1:].clone(), planes[:-1].clone()
+    f[:, :4, :16] += 0.2
+    f[:, 2, 3] = float("nan")
+    f[:, 8:16, :128] = r[:, 8:16, :128]
+    r[:, 9, 3] = 0.0
+    f[:, 9, 3] = -0.0
+    return f, r
+
+
+def phase_codec_kernels(torch, ck, frames, device):
+    """K3, K3b and K4 bit for bit against their plain versions."""
+    errs = {"k3": 0.0, "k3b": 0.0, "k4": 0.0}
+    for h, w in ((128, 128), (240, 320)):
+        f, r = _codec_planes(torch, frames, h, w, device, seed=h)
+        for thr in STREAM_THRESHOLDS:
+            d, m = ck.delta_encode(f[0], r[0], threshold=thr)
+            pd, pm = ck.delta_encode_plain(f[:1], r[:1], threshold=thr)
+            check(_bit_equal(torch, d, pd[0]) and _bit_equal(torch, m, pm[0]),
+                  f"K3 at {h}x{w}, threshold {thr}: differs from its plain version")
+            check(m.dtype == torch.float32 and m.shape == (-(-h // 8), -(-w // 128))
+                  and float(m[0, 0]) == 0.0 and float(m[1, 0]) == 0.0,
+                  f"K3 at {h}x{w}: the NaN or the signed-zero tile is marked changed")
+            errs["k3"] = max(errs["k3"], _value_err(torch, d, pd[0]),
+                             _value_err(torch, m, pm[0]))
+            bd, bm = ck.delta_encode_batched(f, r, threshold=thr)
+            pbd, pbm = ck.delta_encode_plain(f, r, threshold=thr)
+            check(_bit_equal(torch, bd, pbd) and _bit_equal(torch, bm, pbm),
+                  f"K3b at B={CLIENTS}, {h}x{w}: differs from its plain version")
+            for i in range(CLIENTS):
+                di, mi = ck.delta_encode(f[i], r[i], threshold=thr)
+                check(_bit_equal(torch, bd[i], di) and _bit_equal(torch, bm[i], mi),
+                      f"K3b row {i} at {h}x{w} differs from K3 on that client")
+            errs["k3b"] = max(errs["k3b"], _value_err(torch, bd, pbd),
+                              _value_err(torch, bm, pbm))
+            out = ck.delta_decode(d, r[0])
+            want = ck.delta_decode_plain(d, r[0])
+            check(_bit_equal(torch, out, want), f"K4 at {h}x{w} differs from its plain version")
+            errs["k4"] = max(errs["k4"], _value_err(torch, out, want))
+            changed = m.repeat_interleave(8, 0).repeat_interleave(128, 1)[:h, :w] > 0
+            check(_bit_equal(torch, out[changed], f[0][changed]),
+                  f"K3 -> K4 at {h}x{w}: a changed tile does not reconstruct bit for bit")
+        log(f"[codec] {h}x{w}, thresholds {STREAM_THRESHOLDS}: K3, K3b (B={CLIENTS}, rows = K3) "
+            f"and K4 bit-identical to their plain versions; NaN and -0.0/+0.0 tiles unchanged")
+    return errs
+
+
+def _bound(ops, nbytes):
+    """The least time (ms) and what sets it: operations or bytes."""
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_batched_step(torch, hm, tracker_mod, ops_mod, rs, pu, decoded, truth, device):
+    """B = 4 clients' populations scored by K1b, updated by K2b and scored
+    again: the edge server's step.  Returns its launch counts, its
+    inputs (for timing) and its errors against the plain versions."""
+    cfg = configs()[1]
+    frame_idx = [1 + 7 * b for b in range(CLIENTS)]
+    h_prev = truth[[i - 1 for i in frame_idx]]
+    depth = decoded[frame_idx]
+    masks = torch.stack([tracker_mod.stage_preprocess(cfg, h_prev[b], depth[b])[1]
+                         for b in range(CLIENTS)]).reshape(CLIENTS, -1).to(torch.float32)
+    depth = depth.reshape(CLIENTS, -1)
+    rays = cfg.camera.rays_flat(device).expand(CLIENTS, -1, -1).contiguous()
+    n = cfg.pso.num_particles
+    hs = torch.stack([_particles(torch, hm, h_prev[b], n, device, seed=20 + b)
+                      for b in range(CLIENTS)])
+    pbest = torch.stack([_particles(torch, hm, h_prev[b], n, device, seed=30 + b)
+                         for b in range(CLIENTS)])
+    lo = torch.stack([hm.parameter_lower_bounds(h_prev[b], cfg.pos_range, cfg.quat_range)
+                      for b in range(CLIENTS)])
+    hi = torch.stack([hm.parameter_upper_bounds(h_prev[b], cfg.pos_range, cfg.quat_range)
+                      for b in range(CLIENTS)])
+    gen = torch.Generator(device=device).manual_seed(5)
+    v = (torch.rand(hs.shape, generator=gen, device=device) - 0.5) * 0.2 * (hi - lo)[:, None]
+    r1 = torch.rand(hs.shape, generator=gen, device=device)
+    r2 = torch.rand(hs.shape, generator=gen, device=device)
+    torch.cuda.synchronize()
+
+    rs.launches = rs.launches_batched = pu.launches = pu.launches_batched = 0
+    spheres = hm.pack_spheres(hs)
+    scores = ops_mod.render_score_batched(spheres, rays, depth, masks)
+    gbest = hs[torch.arange(CLIENTS, device=device), torch.argmin(scores, dim=1)]
+    x_new, v_new = pu.pso_update_batched(hs, v, pbest, gbest, r1, r2, lo, hi, **UPDATE_CONSTS)
+    scores_new = ops_mod.render_score_batched(
+        hm.pack_spheres(hm.normalize_configuration(x_new)), rays, depth, masks)
+    torch.cuda.synchronize()
+    launches = {"k1b": rs.launches_batched, "k2b": pu.launches_batched}
+    check(launches == {"k1b": 2, "k2b": 1} and rs.launches == 0 and pu.launches == 0,
+          f"batched step launched K1b {rs.launches_batched}, K2b {pu.launches_batched}, "
+          f"K1 {rs.launches}, K2 {pu.launches}: expected 2, 1, 0, 0")
+    for name, t in (("scores", scores), ("scores after the update", scores_new)):
+        check(t.shape == (CLIENTS, n) and bool(torch.isfinite(t).all()),
+              f"batched step: {name} malformed")
+    log(f"[batched] {CLIENTS} clients (frames {frame_idx} as decoded at 0.01 m) x {n} "
+        f"particles x {spheres.shape[2]} spheres at P={rays.shape[1]}: lowest E_D per "
+        f"client at the spawn {[round(x, 5) for x in torch.amin(scores, 1).tolist()]}, "
+        f"after one update {[round(x, 5) for x in torch.amin(scores_new, 1).tolist()]}; launches "
+        f"K1b {launches['k1b']}, K2b {launches['k2b']}")
+
+    denom = torch.clamp(masks.sum(1, keepdim=True), min=1.0)
+    plain = rs.render_score_sums_batched_plain(spheres, rays, depth, masks)
+    k1b_err = 0.0
+    for b in range(CLIENTS):
+        solo = ops_mod.render_score(spheres[b], rays[b], depth[b], masks[b])
+        check(_bit_equal(torch, scores[b], solo), f"K1b row {b} differs from K1 on that client")
+        err, ok = _normalized_err(torch, scores[b] * denom[b], plain[b], masks[b])
+        check(ok, f"K1b row {b} disagrees with its plain version: max|err| {err:.3g}")
+        k1b_err = max(k1b_err, err)
+    px, pv = pu.pso_update_batched_plain(hs, v, pbest, gbest, r1, r2, lo, hi, **UPDATE_CONSTS)
+    for got, want in ((x_new, px), (v_new, pv)):
+        check(bool(torch.allclose(got, want, rtol=K2_TOL, atol=K2_TOL)),
+              "K2b disagrees with its plain version")
+    k2b_err = max(float((x_new - px).abs().max()), float((v_new - pv).abs().max()))
+    for b in range(CLIENTS):
+        sx, sv = pu.pso_update(hs[b], v[b], pbest[b], gbest[b], r1[b], r2[b], lo[b], hi[b],
+                               **UPDATE_CONSTS)
+        check(_bit_equal(torch, x_new[b], sx) and _bit_equal(torch, v_new[b], sv),
+              f"K2b swarm {b} differs from K2 on that swarm")
+    log(f"[batched] K1b rows bit-identical to K1; max|err| of E_D against plain {k1b_err:.3g} "
+        f"(tol rtol {K1_TOL_RTOL} + CLAMP_T/|B| + 1e-6). K2b at {tuple(hs.shape)} "
+        f"bit-identical to K2 per swarm; max|err| against plain {k2b_err:.3g} (tol {K2_TOL})")
+    inputs = {"score": (spheres, rays, depth, masks),
+              "update": (hs, v, pbest, gbest, r1, r2, lo, hi)}
+    return launches, inputs, {"k1b": k1b_err, "k2b": k2b_err}
+
+
+def phase_slice2_timing(torch, rs, pu, ck, frames, step_inputs, device):
+    """K1b, K2b, K3, K3b and K4 at their paths' shapes: CUDA events,
+    profiler device time, plain version, bound, library call."""
+    out = {}
+    spheres, rays, depth, masks = step_inputs["score"]
+    fused = lambda: rs.render_score_sums_batched(spheres, rays, depth, masks)
+    solo = lambda: rs.render_score_sums(spheres[0], rays[0], depth[0], masks[0])
+    solos = lambda: [rs.render_score_sums(spheres[b], rays[b], depth[b], masks[b])
+                     for b in range(CLIENTS)]
+    ms, solo_ms = _time_ms(torch, fused, 200), _time_ms(torch, solo, 200)
+    solos_ms = _time_ms(torch, solos, 100)
+    dev = _device_ms(torch, fused, 20, ["render_score_"])
+    dev_solo = _device_ms(torch, solo, 20, ["render_score_"])
+    # K1's count per client: 10 fp32 ops per (particle, pixel, sphere)
+    # test, 4 more per test with disc >= 0, 5 per (particle, pixel)
+    n, s, p = spheres.shape[1], spheres.shape[2], rays.shape[1]
+    hits = sum(_disc_hits(torch, spheres[b], rays[b]) for b in range(CLIENTS))
+    ops = CLIENTS * (10 * n * p * s + 5 * n * p) + 4 * hits
+    nbytes = 4 * CLIENTS * (n * s * 4 + p * 3 + p + p + n)
+    bound, by = _bound(ops, nbytes)
+    plain_ms = _time_ms(torch, lambda: rs.render_score_sums_batched_plain(
+        spheres, rays, depth, masks), 10)
+    out["k1b"] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                      library_ms=None)
+    per_client_dev = (None if dev is None or dev_solo is None
+                      else f"{dev / (CLIENTS * dev_solo):.3f}")
+    log(f"[time] K1b at B={CLIENTS} N={n} S={s} P={p}: fused {_us(ms)} (device {_us(dev)}), "
+        f"one solo K1 {_us(solo_ms)} (device {_us(dev_solo)}), {CLIENTS} solo K1 calls "
+        f"{_us(solos_ms)}; per_client_vs_solo {ms / (CLIENTS * solo_ms):.3f} (events), "
+        f"{per_client_dev} (device); plain {_us(plain_ms)}; bound {_us(bound)} "
+        f"({ops:.4g} fp32 ops of which {hits} hit tests, {nbytes} B)")
+
+    args = step_inputs["update"]
+    b, n, d = args[0].shape
+    fused = lambda: pu.pso_update_batched(*args, **UPDATE_CONSTS)
+    solo = lambda: pu.pso_update(*(a[0] for a in args), **UPDATE_CONSTS)
+    ms, solo_ms = _time_ms(torch, fused, 500), _time_ms(torch, solo, 500)
+    dev = _device_ms(torch, fused, 50, ["pso_update_kernel"])
+    dev_solo = _device_ms(torch, solo, 50, ["pso_update_kernel"])
+    # five (B, N, D) planes read and two written; gbest, lo and hi (B, D)
+    nbytes = 4 * (7 * b * n * d + 3 * b * d)
+    bound, by = _bound(17 * b * n * d, nbytes)
+    plain_ms = _time_ms(torch, lambda: pu.pso_update_batched_plain(*args, **UPDATE_CONSTS), 200)
+    out["k2b"] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                      library_ms=None)
+    per_client_dev = (None if dev is None or dev_solo is None
+                      else f"{dev / (b * dev_solo):.3f}")
+    log(f"[time] K2b at ({b}, {n}, {d}): fused {_us(ms)} (device {_us(dev)}), one solo K2 "
+        f"{_us(solo_ms)} (device {_us(dev_solo)}); per_client_vs_solo "
+        f"{ms / (b * solo_ms):.3f} (events), {per_client_dev} (device); plain "
+        f"{_us(plain_ms)}; bound {bound * 1e3:.4f} us ({nbytes} B)")
+
+    def codec_bytes(planes, h, w):  # two float planes read; the delta and mask written
+        return 4 * planes * (3 * h * w + -(-h // 8) * -(-w // 128))
+
+    t_count, h, w = frames.shape
+    f, r = frames[1], frames[0]
+    wide_f, wide_r = _codec_planes(torch, frames, 240, 320, device, seed=1)
+    for label, ff, rr in (("128x128", f, r), ("240x320", wide_f[0], wide_r[0])):
+        enc = lambda: ck.delta_encode(ff, rr, threshold=0.01)
+        ms = _time_ms(torch, enc, 500)
+        dev = _device_ms(torch, enc, 50, ["delta_encode_kernel"])
+        plain_ms = _time_ms(torch, lambda: ck.delta_encode_plain(
+            ff[None], rr[None], threshold=0.01), 100)
+        nbytes = codec_bytes(1, *ff.shape)
+        bound, by = _bound(0, nbytes)
+        log(f"[time] K3 at {label}: {_us(ms)} (device {_us(dev)}), plain {_us(plain_ms)}, "
+            f"bound {bound * 1e3:.4f} us ({nbytes} B)")
+        if label == "128x128":
+            out["k3"] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound,
+                             bound_by=by, library_ms=None)
+
+    enc = lambda: ck.delta_encode_batched(frames[1:], frames[:-1], threshold=0.01)
+    ms = _time_ms(torch, enc, 500)
+    dev = _device_ms(torch, enc, 50, ["delta_encode_kernel"])
+    plain_ms = _time_ms(torch, lambda: ck.delta_encode_plain(
+        frames[1:], frames[:-1], threshold=0.01), 20)
+    nbytes = codec_bytes(t_count - 1, h, w)
+    bound, by = _bound(0, nbytes)
+    out["k3b"] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                      library_ms=None)
+    log(f"[time] K3b at ({t_count - 1}, {h}, {w}) (change_density's call): {_us(ms)} "
+        f"(device {_us(dev)}), plain {_us(plain_ms)}, bound {bound * 1e3:.4f} us ({nbytes} B)")
+
+    delta, _ = ck.delta_encode(f, r)
+    dec = lambda: ck.delta_decode(delta, r)
+    ms = _time_ms(torch, dec, 500)
+    dev = _device_ms(torch, dec, 50, ["delta_decode_kernel"])
+    xor = lambda: torch.bitwise_xor(r.view(torch.int32), delta).view(torch.float32)
+    library = _time_ms(torch, xor, 500)
+    library_dev = _device_ms(torch, xor, 50, ["Xor"])
+    plain_ms = _time_ms(torch, lambda: ck.delta_decode_plain(delta, r), 500)
+    nbytes = 4 * 3 * h * w
+    bound, by = _bound(0, nbytes)
+    out["k4"] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                     library_ms=library)
+    log(f"[time] K4 at {h}x{w}: {_us(ms)} (device {_us(dev)}), plain {_us(plain_ms)}, "
+        f"library (torch.bitwise_xor) {_us(library)} (device {_us(library_dev)}), "
+        f"bound {bound * 1e3:.4f} us ({nbytes} B)")
+    return out
+
+
+SLICE2_KERNELS = [
+    # key, name, source, replaces
+    ("k1b", "render_score_sums_batched", "src/repro_torch/csrc/render_score.cu",
+     "src/repro/kernels/render_score.py:183"),
+    ("k2b", "pso_update_batched", "src/repro_torch/csrc/pso_update.cu",
+     "src/repro/kernels/pso_update.py:120"),
+    ("k3", "delta_encode", "src/repro_torch/csrc/delta_codec.cu",
+     "src/repro/codec/kernels.py:91"),
+    ("k3b", "delta_encode_batched", "src/repro_torch/csrc/delta_codec.cu",
+     "src/repro/codec/kernels.py:160"),
+    ("k4", "delta_decode", "src/repro_torch/csrc/delta_codec.cu",
+     "src/repro/codec/kernels.py:130"),
+]
+
+
 def main() -> int:
     if not (PACKAGE / "kernels" / "_build.py").is_file():
         fail(f"{PACKAGE} not found: run from the root of a checkout of the repo")
@@ -386,7 +787,10 @@ def main() -> int:
     from repro_torch.core import handmodel as hm
     from repro_torch.core import tracker as tracker_mod
     from repro_torch.data import rgbd
+    from repro_torch.codec import kernels as ck
+    from repro_torch.codec import ref as cref
     from repro_torch.kernels import _build
+    from repro_torch.kernels import ops as ops_mod
     from repro_torch.kernels import pso_update as pu
     from repro_torch.kernels import render_score as rs
 
@@ -409,6 +813,30 @@ def main() -> int:
     launches = phase_main_path(torch, tracker_mod, rs, pu, frames, truth, device)
     prof = phase_profile(torch, tracker_mod, frames, truth, device)
     kernels = phase_timing(torch, rs, pu, inputs, device, k1_err, k2_err, launches, prof)
+
+    for key in ck.launches:
+        ck.launches[key] = 0
+    decoded = phase_uplink(torch, cref, frames)
+    torch.cuda.synchronize()
+    launches.update({"k3": ck.launches["delta_encode"],
+                     "k3b": ck.launches["delta_encode_batched"],
+                     "k4": ck.launches["delta_decode"]})
+    log(f"[uplink] launches: K3 {launches['k3']}, K3b {launches['k3b']}, K4 {launches['k4']}")
+    check(min(launches["k3"], launches["k3b"], launches["k4"]) > 0,
+          "a kernel of the uplink path was not launched")
+    errs = phase_codec_kernels(torch, ck, frames, device)
+    step_launches, step_inputs, step_errs = phase_batched_step(
+        torch, hm, tracker_mod, ops_mod, rs, pu, decoded, truth, device)
+    launches.update(step_launches)
+    errs.update(step_errs)
+    timing = phase_slice2_timing(torch, rs, pu, ck, frames, step_inputs, device)
+    for key, name, source, replaces in SLICE2_KERNELS:
+        t = timing[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[key], "max_abs_err": errs[key], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,10 +1,14 @@
-// Population render + score: the tracker's population evaluation (K1).
+// Population render + score: the tracker's population evaluation (K1),
+// and the edge server's evaluation of B clients' populations in one
+// launch (K1b).
 //
-// Replaces the Pallas TPU kernel repro/kernels/render_score.py:
-// render_score_sums (_render_score_kernel, tile body _score_tile).  For
-// every particle n it computes
+// Replaces the Pallas TPU kernels repro/kernels/render_score.py:
+// render_score_sums and render_score_sums_batched (_render_score_kernel
+// and _render_score_batched_kernel, tile body _score_tile).  For every
+// client b and particle n it computes
 //
-//   sum_p mask[p] * min(|min_s t(ray_p, sphere_{n,s}) - depth[p]|, clamp_t)
+//   sum_p mask[b,p] * min(|min_s t(ray_{b,p}, sphere_{b,n,s}) - depth[b,p]|,
+//                         clamp_t)
 //
 // where t is the near root of the ray/sphere intersection (rays have
 // d_z == 1, so t is metric depth), a hit needs disc >= 0 and t > 1e-4,
@@ -25,9 +29,12 @@
 //     silhouette pixels.  The K=3 dot is fp32 FMAs, not tensor cores.
 //   * The Pallas kernel carries its sum across the sequential pixel-tile
 //     grid axis.  Blocks on Hopper run in parallel, so here a (pixel
-//     tile, particle) grid writes one partial sum per block, and a second
-//     kernel adds each particle's partials in tile order.  No float
-//     atomics: repeated runs are bit-identical.
+//     tile, particle, client) grid writes one partial sum per block, and
+//     a second kernel adds each (client, particle)'s partials in tile
+//     order.  No float atomics: repeated runs are bit-identical.
+//   * K1 is the B = 1 launch.  A block's work depends on b only through
+//     the offsets of its inputs, so row b of K1b equals K1 on client b
+//     bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -38,19 +45,24 @@ constexpr int kPixelsPerThread = 4;
 constexpr int kTilePixels = kThreads * kPixelsPerThread;
 
 __global__ void __launch_bounds__(kThreads)
-render_score_partial_kernel(const float* __restrict__ spheres,  // (N, S, 4)
-                            const float* __restrict__ rays,     // (P, 3)
-                            const float* __restrict__ depth,    // (P,)
-                            const float* __restrict__ mask,     // (P,)
-                            float* __restrict__ partial,        // (N, tiles)
-                            int num_spheres, int num_pixels, int tiles,
-                            float clamp_t, float background) {
+render_score_partial_kernel(const float* __restrict__ spheres,  // (B, N, S, 4)
+                            const float* __restrict__ rays,     // (B, P, 3)
+                            const float* __restrict__ depth,    // (B, P)
+                            const float* __restrict__ mask,     // (B, P)
+                            float* __restrict__ partial,  // (B, N, tiles)
+                            int num_particles, int num_spheres,
+                            int num_pixels, int tiles, float clamp_t,
+                            float background) {
   extern __shared__ float4 sph[];  // (S,): cx, cy, cz, |c|^2 - r^2
   __shared__ float warp_sums[kThreads / 32];
 
-  const int n = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t row = static_cast<size_t>(b) * num_particles + blockIdx.y;
   const int tile = blockIdx.x;
-  const float* sp = spheres + static_cast<size_t>(n) * num_spheres * 4;
+  const float* sp = spheres + row * num_spheres * 4;
+  rays += static_cast<size_t>(b) * num_pixels * 3;
+  depth += static_cast<size_t>(b) * num_pixels;
+  mask += static_cast<size_t>(b) * num_pixels;
   for (int i = threadIdx.x; i < num_spheres; i += kThreads) {
     const float cx = sp[4 * i], cy = sp[4 * i + 1], cz = sp[4 * i + 2];
     const float r = sp[4 * i + 3];
@@ -114,15 +126,17 @@ render_score_partial_kernel(const float* __restrict__ spheres,  // (N, S, 4)
     for (int off = 16; off > 0; off >>= 1) {
       acc += __shfl_down_sync(0xffffffffu, acc, off);
     }
-    if (lane == 0) partial[static_cast<size_t>(n) * tiles + tile] = acc;
+    if (lane == 0) partial[row * tiles + tile] = acc;
   }
 }
 
+// One thread per (client, particle) row of partial sums, added in tile
+// order.
 __global__ void render_score_reduce_kernel(const float* __restrict__ partial,
-                                           float* __restrict__ out,
-                                           int num_particles, int tiles) {
+                                           float* __restrict__ out, int rows,
+                                           int tiles) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= num_particles) return;
+  if (n >= rows) return;
   const float* row = partial + static_cast<size_t>(n) * tiles;
   float acc = 0.0f;
   for (int t = 0; t < tiles; ++t) acc += row[t];
@@ -133,27 +147,31 @@ __global__ void render_score_reduce_kernel(const float* __restrict__ partial,
 
 extern "C" int render_score_tile_pixels() { return kTilePixels; }
 
-// Launches both kernels on `stream`.  `partial` is scratch of
-// num_particles * ceil(num_pixels / render_score_tile_pixels()) floats.
-// Returns cudaGetLastError() after the launches (0 on success).
+// Launches both kernels on `stream` for `num_clients` clients (1 for
+// K1; at most 65535, as are num_particles).  `partial` is scratch of
+// num_clients * num_particles * ceil(num_pixels / render_score_tile_pixels())
+// floats; `out` is (num_clients, num_particles).  Returns
+// cudaGetLastError() after the launches (0 on success).
 extern "C" int render_score_sums_launch(const float* spheres, const float* rays,
                                         const float* depth, const float* mask,
                                         float* partial, float* out,
-                                        int num_particles, int num_spheres,
-                                        int num_pixels, float clamp_t,
-                                        float background, void* stream) {
+                                        int num_clients, int num_particles,
+                                        int num_spheres, int num_pixels,
+                                        float clamp_t, float background,
+                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles = (num_pixels + kTilePixels - 1) / kTilePixels;
-  const dim3 grid(tiles, num_particles);
+  const dim3 grid(tiles, num_particles, num_clients);
   const size_t smem = static_cast<size_t>(num_spheres) * sizeof(float4);
   render_score_partial_kernel<<<grid, kThreads, smem, s>>>(
-      spheres, rays, depth, mask, partial, num_spheres, num_pixels, tiles,
-      clamp_t, background);
+      spheres, rays, depth, mask, partial, num_particles, num_spheres,
+      num_pixels, tiles, clamp_t, background);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
+  const int rows = num_clients * num_particles;
   const int reduce_threads = 128;
-  render_score_reduce_kernel<<<(num_particles + reduce_threads - 1) / reduce_threads,
-                               reduce_threads, 0, s>>>(partial, out,
-                                                       num_particles, tiles);
+  render_score_reduce_kernel<<<(rows + reduce_threads - 1) / reduce_threads,
+                               reduce_threads, 0, s>>>(partial, out, rows,
+                                                       tiles);
   return static_cast<int>(cudaGetLastError());
 }

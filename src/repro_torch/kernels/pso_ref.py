@@ -1,5 +1,5 @@
-"""Plain PyTorch oracle for the pso_update kernel (mirrors the swarm
-update of ``repro.core.pso.swarm_step``)."""
+"""Plain PyTorch oracles for the pso_update kernels K2 and K2b (mirror
+the swarm update of ``repro.core.pso.swarm_step``)."""
 
 from __future__ import annotations
 
@@ -22,4 +22,25 @@ def pso_update(
     vmax = velocity_clip * (hi - lo)
     vel = torch.minimum(torch.maximum(vel, -vmax[None]), vmax[None])
     pos = torch.minimum(torch.maximum(x + vel, lo[None]), hi[None])
+    return pos, vel
+
+
+def pso_update_batched(
+    x, v, pbest, gbest, r1, r2, lo, hi,
+    *, inertia: float, cognitive: float, social: float, velocity_clip: float,
+):
+    """(x, v, pbest, r1, r2) (B, N, D); gbest (B, D); (lo, hi) (D,) or
+    (B, D) -> (x', v'), both (B, N, D).  The unbatched math per swarm."""
+    b, _, d = x.shape
+    x = x.float()
+    lo = torch.broadcast_to(lo.float(), (b, d))[:, None, :]
+    hi = torch.broadcast_to(hi.float(), (b, d))[:, None, :]
+    vel = (
+        inertia * v.float()
+        + cognitive * r1.float() * (pbest.float() - x)
+        + social * r2.float() * (gbest[:, None].float() - x)
+    )
+    vmax = velocity_clip * (hi - lo)
+    vel = torch.minimum(torch.maximum(vel, -vmax), vmax)
+    pos = torch.minimum(torch.maximum(x + vel, lo), hi)
     return pos, vel

@@ -1,9 +1,9 @@
-"""Plain PyTorch oracle for the render_score kernel.
+"""Plain PyTorch oracles for the render_score kernels K1 and K1b.
 
-Re-derives the quantity the kernel computes from the objective in
-``repro_torch.core.objective``.  ``render_score.render_score_sums``
-runs it for CPU tensors, and ``chip_smoke.py`` holds the CUDA kernel
-against it on the card.
+Re-derive the quantity the kernels compute from the objective in
+``repro_torch.core.objective``.  The wrappers in ``render_score`` run
+them for CPU tensors, and ``chip_smoke.py`` holds the CUDA kernels
+against them on the card.
 """
 
 from __future__ import annotations
@@ -25,6 +25,20 @@ def render_score_sums(
     d_h = sphere_depth(rays.float(), spheres.float())  # (N, P)
     err = torch.clamp(torch.abs(d_h - depth_obs.float()), max=clamp_t)
     return torch.sum(err * mask.float(), dim=-1)
+
+
+def render_score_sums_batched(
+    spheres: torch.Tensor,  # (B, N, S, 4)
+    rays: torch.Tensor,  # (B, P, 3)
+    depth_obs: torch.Tensor,  # (B, P)
+    mask: torch.Tensor,  # (B, P)
+    *,
+    clamp_t: float = CLAMP_T,
+) -> torch.Tensor:
+    """Unnormalized sums per (client, particle), shape (B, N): each
+    client's row is ``render_score_sums`` on that client alone."""
+    return torch.stack([render_score_sums(*args, clamp_t=clamp_t)
+                        for args in zip(spheres, rays, depth_obs, mask)])
 
 
 def render_score(

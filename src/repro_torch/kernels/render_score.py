@@ -1,16 +1,20 @@
-"""Population render + E_D scoring: the CUDA kernel K1 and its wrapper.
+"""Population render + E_D scoring: the CUDA kernels K1 and K1b and their
+wrappers.
 
-Replaces the Pallas TPU kernel ``repro/kernels/render_score.py:
-render_score_sums``.  For every particle it renders the hand's spheres
-along every camera ray and sums the masked clamped-L1 distance to the
-observed depth: spheres (N, S, 4), rays (P, 3), depth (P,), mask (P,)
-give sums (N,).
+Replaces the Pallas TPU kernels ``repro/kernels/render_score.py:
+render_score_sums`` and ``render_score_sums_batched``.  For every
+particle it renders the hand's spheres along every camera ray and sums
+the masked clamped-L1 distance to the observed depth: spheres (N, S, 4),
+rays (P, 3), depth (P,), mask (P,) give sums (N,); with a leading client
+axis, (B, N, S, 4), (B, P, 3), (B, P), (B, P) give (B, N).
 
 The kernel is ``csrc/render_score.cu``, which says what bounds it on an
-H100 (operations) and how its design answers that.  For a CUDA tensor
-the wrapper launches it, or raises; for a CPU tensor it runs the plain
-version, ``render_score_sums_plain`` (the oracle in ``kernels/ref.py``).
-``launches`` counts the kernel's launches.
+H100 (operations) and how its design answers that.  K1 is its B = 1
+launch, so each client's row of K1b equals K1 on that client bit for
+bit.  For a CUDA tensor a wrapper launches it, or raises; for a CPU
+tensor it runs the plain version, ``render_score_sums_plain`` or
+``render_score_sums_batched_plain`` (the oracles in ``kernels/ref.py``).
+``launches`` counts K1's launches and ``launches_batched`` K1b's.
 """
 
 from __future__ import annotations
@@ -21,12 +25,54 @@ from repro_torch.core.camera import BACKGROUND_DEPTH
 from repro_torch.core.objective import CLAMP_T
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import render_score_sums as render_score_sums_plain
+from repro_torch.kernels.ref import (
+    render_score_sums_batched as render_score_sums_batched_plain,
+)
 
-# Launches of the CUDA kernel since the count was last set to 0.
+# Launches of the CUDA kernel since the count was last set to 0: by
+# render_score_sums (K1) and by render_score_sums_batched (K1b).
 launches = 0
+launches_batched = 0
 
 # Spheres per particle a block stages in shared memory (16 B each).
 MAX_SPHERES = 2048
+# The kernel's grid puts particles on its y axis and clients on its z.
+MAX_GRID_YZ = 65535
+
+
+def _launch(spheres, rays, depth_obs, mask, clamp_t):
+    """One launch over (B, N, S, 4), (B, P, 3), (B, P), (B, P) inputs;
+    returns the (B, N) sums."""
+    device = spheres.device
+    b, n, s, four = spheres.shape
+    p = rays.shape[1]
+    if (four != 4 or rays.shape != (b, p, 3) or depth_obs.shape != (b, p)
+            or mask.shape != (b, p)):
+        raise ValueError(
+            f"shapes spheres {tuple(spheres.shape)}, rays {tuple(rays.shape)}, "
+            f"depth {tuple(depth_obs.shape)}, mask {tuple(mask.shape)}: expected "
+            "(N, S, 4), (P, 3), (P,), (P,) with a common leading client axis "
+            "for the batched kernel"
+        )
+    if not 0 < s <= MAX_SPHERES or n > MAX_GRID_YZ or b > MAX_GRID_YZ:
+        raise ValueError(f"the kernel takes 1..{MAX_SPHERES} spheres, and at most "
+                         f"{MAX_GRID_YZ} particles and {MAX_GRID_YZ} clients")
+    out = torch.empty((b, n), dtype=torch.float32, device=device)
+    if b * n == 0 or p == 0:
+        return out.zero_(), False
+    if mask.dtype == torch.bool:
+        mask = mask.to(torch.float32)
+    args = [_build.kernel_input(name, t, device) for name, t in (
+        ("spheres", spheres), ("rays", rays), ("depth_obs", depth_obs), ("mask", mask))]
+    lib = _build.library()
+    tiles = -(-p // lib.render_score_tile_pixels())
+    partial = torch.empty((b, n, tiles), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.render_score_sums_launch(
+            *(t.data_ptr() for t in args), partial.data_ptr(), out.data_ptr(),
+            b, n, s, p, clamp_t, BACKGROUND_DEPTH, _build.stream_handle(device))
+    _build.check(err, "render_score_sums")
+    return out, True
 
 
 def render_score_sums(
@@ -46,31 +92,32 @@ def render_score_sums(
     if not spheres.is_cuda:
         return render_score_sums_plain(spheres, rays, depth_obs, mask, clamp_t=clamp_t)
     global launches
-    device = spheres.device
-    n, s, four = spheres.shape
-    p = rays.shape[0]
-    if four != 4 or rays.shape != (p, 3) or depth_obs.shape != (p,) or mask.shape != (p,):
-        raise ValueError(
-            f"shapes spheres {tuple(spheres.shape)}, rays {tuple(rays.shape)}, "
-            f"depth {tuple(depth_obs.shape)}, mask {tuple(mask.shape)}: expected "
-            "(N, S, 4), (P, 3), (P,), (P,)"
-        )
-    if not 0 < s <= MAX_SPHERES or n > 65535:
-        raise ValueError(f"the kernel takes 1..{MAX_SPHERES} spheres and <= 65535 particles")
-    out = torch.empty((n,), dtype=torch.float32, device=device)
-    if n == 0 or p == 0:
-        return out.zero_()
-    if mask.dtype == torch.bool:
-        mask = mask.to(torch.float32)
-    args = [_build.kernel_input(name, t, device) for name, t in (
-        ("spheres", spheres), ("rays", rays), ("depth_obs", depth_obs), ("mask", mask))]
-    lib = _build.library()
-    tiles = -(-p // lib.render_score_tile_pixels())
-    partial = torch.empty((n, tiles), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        err = lib.render_score_sums_launch(
-            *(t.data_ptr() for t in args), partial.data_ptr(), out.data_ptr(),
-            n, s, p, clamp_t, BACKGROUND_DEPTH, _build.stream_handle(device))
-    _build.check(err, "render_score_sums")
-    launches += 1
+    if spheres.dim() != 3 or rays.dim() != 2:
+        raise ValueError(f"shapes spheres {tuple(spheres.shape)}, rays "
+                         f"{tuple(rays.shape)}: expected (N, S, 4), (P, 3)")
+    out, launched = _launch(spheres[None], rays[None], depth_obs[None], mask[None],
+                            clamp_t)
+    launches += launched
+    return out[0]
+
+
+def render_score_sums_batched(
+    spheres: torch.Tensor,  # (B, N, S, 4): one population per client
+    rays: torch.Tensor,  # (B, P, 3)
+    depth_obs: torch.Tensor,  # (B, P)
+    mask: torch.Tensor,  # (B, P) float or bool
+    *,
+    clamp_t: float = CLAMP_T,
+) -> torch.Tensor:
+    """B clients' populations scored in one launch: unnormalized sums,
+    shape (B, N), float32.  Any N and P, as ``render_score_sums``."""
+    if not spheres.is_cuda:
+        return render_score_sums_batched_plain(spheres, rays, depth_obs, mask,
+                                               clamp_t=clamp_t)
+    global launches_batched
+    if spheres.dim() != 4:
+        raise ValueError(f"spheres has shape {tuple(spheres.shape)}, "
+                         "expected (B, N, S, 4)")
+    out, launched = _launch(spheres, rays, depth_obs, mask, clamp_t)
+    launches_batched += launched
     return out

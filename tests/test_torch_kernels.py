@@ -7,20 +7,24 @@ machine, which has no JAX, runs it:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels.py
 
 The tests marked ``gpu`` need a CUDA card and nvcc; elsewhere they skip
-with that reason.  Tolerances: K1 as ``tests/test_kernels.py`` holds the
-Pallas kernel (rtol 2e-5 plus one silhouette-pixel flip, CLAMP_T / |B|,
-on the normalized score); K2 at rtol = atol = 1e-6, as
-``tests/test_pso_kernel.py``.
+with that reason.  Tolerances: K1 and K1b as ``tests/test_kernels.py``
+holds the Pallas kernel (rtol 2e-5 plus one silhouette-pixel flip,
+CLAMP_T / |B|, on the normalized score); K2 and K2b at rtol = atol =
+1e-6, as ``tests/test_pso_kernel.py``; the delta codec (K3, K3b, K4) bit
+for bit.  A batched kernel's rows equal its unbatched kernel bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.codec import kernels as ck
+from repro_torch.codec import ref as cref
 from repro_torch.core import handmodel as hm
 from repro_torch.core.camera import Camera, crop_camera
 from repro_torch.core.objective import CLAMP_T, render_depth
 from repro_torch.kernels import _build
+from repro_torch.kernels import ops
 from repro_torch.kernels import pso_update as pu
 from repro_torch.kernels import render_score as rs
 
@@ -77,8 +81,82 @@ def test_cpu_tensors_take_the_plain_versions():
     assert (rs.launches, pu.launches) == (k1, k2)
 
 
+def _batched_update_inputs(b, n, d, device, per_swarm_bounds):
+    swarms = [_update_inputs(n, d, device, seed=i) for i in range(b)]
+    x, v, pb, gb, r1, r2, lo, hi = (torch.stack(a) for a in zip(*swarms))
+    if not per_swarm_bounds:
+        lo, hi = lo[0], hi[0]
+    return [x, v, pb, gb, r1, r2, lo, hi]
+
+
+def _codec_pair(h, w, device, b=None, seed=0):
+    """(frame, ref) planes, (h, w) or (b, h, w): noise, a tile moved by
+    more than any threshold but holding a NaN, a tile whose only
+    difference is -0.0 against +0.0, and a moved last tile."""
+    rng = np.random.default_rng(seed)
+    shape = (h, w) if b is None else (b, h, w)
+    ref = rng.normal(0.5, 0.1, shape).astype(np.float32)
+    frame = ref + rng.normal(0.0, 0.002, shape).astype(np.float32)
+    frame[..., :4, :16] += 0.2
+    frame[..., 2, 3] = np.nan
+    frame[..., 8:16, :128] = ref[..., 8:16, :128]
+    ref[..., 9, 3], frame[..., 9, 3] = 0.0, -0.0
+    frame[..., h - 1, w - 1] += 0.5
+    return torch.from_numpy(frame).to(device), torch.from_numpy(ref).to(device)
+
+
+def _counts():
+    return (rs.launches, rs.launches_batched, pu.launches, pu.launches_batched,
+            dict(ck.launches))
+
+
+def test_batched_and_codec_wrappers_take_the_plain_versions_on_cpu():
+    """On the CPU the new wrappers run their plain versions, exactly, and
+    count no launch."""
+    before = _counts()
+    cam = Camera(width=24, height=16, fx=20.0, fy=20.0, cx=11.5, cy=7.5)
+    rows = [_score_inputs(3, "cpu", cam) for _ in range(2)]
+    args = [torch.stack(a) for a in zip(*rows)]
+    assert torch.equal(rs.render_score_sums_batched(*args),
+                       rs.render_score_sums_batched_plain(*args))
+    upd = _batched_update_inputs(2, 5, 27, "cpu", per_swarm_bounds=True)
+    for a, b in zip(pu.pso_update_batched(*upd, **CONSTS),
+                    pu.pso_update_batched_plain(*upd, **CONSTS)):
+        assert torch.equal(a, b)
+    frame, ref = _codec_pair(16, 256, "cpu")
+    for got, want in zip(ck.delta_encode(frame, ref, threshold=0.01),
+                         cref.delta_encode(frame, ref, threshold=0.01)):
+        assert torch.equal(got, want)
+    frames, refs = _codec_pair(16, 256, "cpu", b=2)
+    for got, want in zip(ck.delta_encode_batched(frames, refs),
+                         ck.delta_encode_plain(frames, refs)):
+        assert torch.equal(got, want)
+    delta, _ = ck.delta_encode(frame, ref)
+    assert torch.equal(ck.delta_decode(delta, ref).view(torch.int32),
+                       ck.delta_decode_plain(delta, ref).view(torch.int32))
+    assert _counts() == before
+
+
+def test_batched_wrappers_reject_bad_path_and_shapes():
+    upd = _batched_update_inputs(2, 5, 27, "cpu", per_swarm_bounds=False)
+    with pytest.raises(ValueError, match="unknown path"):
+        pu.pso_update_batched(*upd, path="scan", **CONSTS)
+    with pytest.raises(ValueError, match="r1"):
+        pu.pso_update_batched(*upd[:4], upd[4][:, :3], *upd[5:], **CONSTS)
+    frames, refs = _codec_pair(16, 256, "cpu", b=2)
+    with pytest.raises(ValueError, match="unknown path"):
+        ck.delta_encode_batched(frames, refs, path="scan")
+    with pytest.raises(ValueError):
+        ck.delta_encode_batched(frames, refs[:1])
+    with pytest.raises(ValueError):
+        ck.delta_encode(frames, refs)  # (B, H, W) where (H, W) is due
+    with pytest.raises(ValueError):
+        ck.delta_encode(frames[0], refs[0], block_h=0)
+
+
 def test_build_targets_hopper_without_fast_math():
-    assert {p.name for p in _build.sources()} >= {"render_score.cu", "pso_update.cu"}
+    assert {p.name for p in _build.sources()} >= {
+        "render_score.cu", "pso_update.cu", "delta_codec.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
     assert "-O3" in _build.COMPILE_FLAGS
     assert not any("fast_math" in f for f in _build.ARCH_FLAGS + _build.COMPILE_FLAGS)
@@ -116,3 +194,80 @@ def test_pso_update_kernel_matches_plain(cuda, n):
     px, pv = pu.pso_update_plain(*args, **CONSTS)
     torch.testing.assert_close(kx, px, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(kv, pv, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_render_score_batched_kernel_matches_plain_and_k1(cuda):
+    """K1b over 3 clients (64 particles on a 64x64 camera, P cut to a
+    ragged length): each row equals K1 on that client bit for bit and is
+    within K1's tolerance of the plain version."""
+    cam = crop_camera(Camera(), 2)
+    rows = [_score_inputs(64, cuda, cam) for _ in range(3)]
+    p = rows[0][1].shape[0] - 77
+    spheres, rays, depth, mask = (torch.stack(a) for a in zip(*rows))
+    for i in range(3):  # three different clients
+        spheres[i, :, :, 2] += 0.01 * i
+        mask[i, : 200 * i] = 0.0
+    args = (spheres, rays[:, :p], depth[:, :p], mask[:, :p])
+    before = (rs.launches, rs.launches_batched)
+    got = rs.render_score_sums_batched(*args)
+    assert (rs.launches, rs.launches_batched) == (before[0], before[1] + 1)
+    want = rs.render_score_sums_batched_plain(*args)
+    for i in range(3):
+        assert torch.equal(got[i], rs.render_score_sums(*(a[i] for a in args)))
+        _assert_scores_close(got[i], want[i], args[3][i])
+    normalized = ops.render_score_batched(*args)
+    for i in range(3):
+        assert torch.equal(normalized[i], ops.render_score(*(a[i] for a in args)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_swarm_bounds", [False, True])
+def test_pso_update_batched_kernel_matches_plain_and_k2(cuda, per_swarm_bounds):
+    args = _batched_update_inputs(4, 64, 27, cuda, per_swarm_bounds)
+    before = pu.launches_batched
+    kx, kv = pu.pso_update_batched(*args, **CONSTS)
+    assert pu.launches_batched == before + 1
+    px, pv = pu.pso_update_batched_plain(*args, **CONSTS)
+    torch.testing.assert_close(kx, px, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(kv, pv, rtol=1e-6, atol=1e-6)
+    vx, vv = pu.pso_update_batched(*args, path="vmap", **CONSTS)
+    assert torch.equal(kx, vx) and torch.equal(kv, vv)  # K2 per swarm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("threshold", [0.0, 0.01])
+@pytest.mark.parametrize("h,w", [(128, 128), (240, 320)])
+def test_delta_codec_kernels_match_plain(cuda, h, w, threshold):
+    """K3, K3b (B = 4) and K4 bit for bit against their plain versions on
+    the CPU, with the NaN and signed-zero tiles; K3b's rows equal K3."""
+    frames, refs = _codec_pair(h, w, cuda, b=4, seed=h)
+    before = dict(ck.launches)
+    d, m = ck.delta_encode_batched(frames, refs, threshold=threshold)
+    pd, pm = ck.delta_encode_plain(frames.cpu(), refs.cpu(), threshold=threshold)
+    assert torch.equal(d.cpu(), pd) and torch.equal(m.cpu(), pm)
+    assert m.dtype == torch.float32 and m.shape == (4, -(-h // 8), -(-w // 128))
+    for i in range(4):
+        di, mi = ck.delta_encode(frames[i], refs[i], threshold=threshold)
+        assert torch.equal(di, d[i]) and torch.equal(mi, m[i])
+        out = ck.delta_decode(di, refs[i])
+        want = ck.delta_decode_plain(di.cpu(), refs[i].cpu())
+        assert torch.equal(out.cpu().view(torch.int32), want.view(torch.int32))
+    assert m[0, 0, 0] == 0 and m[0, 1, 0] == 0 and m[0, -1, -1] == 1
+    assert ck.launches == {"delta_encode": before["delta_encode"] + 4,
+                           "delta_encode_batched": before["delta_encode_batched"] + 1,
+                           "delta_decode": before["delta_decode"] + 4}
+
+
+@pytest.mark.gpu
+def test_delta_stream_on_the_card_is_lossless_at_threshold_zero(cuda):
+    rng = np.random.default_rng(3)
+    base = rng.normal(0.5, 0.1, (32, 128)).astype(np.float32)
+    enc = cref.DeltaStreamEncoder(keyframe_interval=4)
+    dec = cref.DeltaStreamDecoder()
+    for t in range(9):
+        f = base.copy()
+        f[(t * 3) % 32: (t * 3) % 32 + 4, :16] += 0.05
+        frame = torch.from_numpy(f).to(cuda)
+        out = dec.decode(enc.encode(frame))
+        assert out.is_cuda and torch.equal(out.view(torch.int32), frame.view(torch.int32))
