@@ -27,9 +27,11 @@ Phases (any failure exits non-zero and prints no result line):
      threshold 0 (every frame decodes bit-identical) and 0.01 m (every
      pixel within it), and once with a packet lost (the forced keyframe
      arrives within ``resync_bound``); ``change_density`` per transition
-     and the wire ratio; K3, K3b (B = 4) and K4 bit for bit against their
-     plain versions at 128x128 and at the unaligned 240x320, with a NaN
-     tile and a -0.0/+0.0 tile; each timed beside its bound;
+     and the wire ratio; K3b bit for bit against its plain version at
+     change_density's own (29, 128, 128) call, and change_density equal
+     to the plain masks' mean; K3, K3b (B = 4) and K4 bit for bit against
+     their plain versions at 128x128 and at the unaligned 240x320, with a
+     NaN tile and a -0.0/+0.0 tile; each timed beside its bound;
   9. the edge server's batched step at full width: 4 clients, each with
      its own decoded frame and 64-particle population, scored by K1b
      (each row equal to K1 on that client), updated by K2b at (4, 64, 27)
@@ -464,10 +466,11 @@ def _wire_nbytes(cref, packet, shape):
 
 def phase_uplink(torch, cref, frames):
     """Stream the sequence through the port's encoder and decoder on the
-    card.  Returns the frames the 0.01 m stream decoded."""
+    card.  Returns the frames the 0.01 m stream decoded, and
+    change_density's result at each threshold."""
     t_count, h, w = frames.shape
     raw = t_count * h * w * 4
-    decoded_lossy = None
+    decoded_lossy, densities = None, {}
     for thr in STREAM_THRESHOLDS:
         enc = cref.DeltaStreamEncoder(threshold=thr)
         dec = cref.DeltaStreamDecoder()
@@ -485,7 +488,7 @@ def phase_uplink(torch, cref, frames):
             worst = max(worst, err)
             wire += _wire_nbytes(cref, packet, (h, w))
             decoded.append(got)
-        density = cref.change_density(frames, threshold=thr)
+        density = densities[thr] = cref.change_density(frames, threshold=thr)
         check(density.shape == (t_count - 1,) and bool(torch.isfinite(density).all()),
               "change_density is malformed")
         log(f"[uplink] threshold {thr} m, keyframe every {enc.keyframe_interval}: "
@@ -520,7 +523,7 @@ def phase_uplink(torch, cref, frames):
     log(f"[uplink] packet {lost} lost: forced keyframe at packet {resync} "
         f"(resync_bound {enc.resync_bound}), {dec.nacks} NACKs, "
         f"{dec.decoded} of {t_count} frames decoded, each bit-identical")
-    return decoded_lossy
+    return decoded_lossy, densities
 
 
 def _codec_planes(torch, frames, h, w, device, seed):
@@ -541,9 +544,23 @@ def _codec_planes(torch, frames, h, w, device, seed):
     return f, r
 
 
-def phase_codec_kernels(torch, ck, frames, device):
-    """K3, K3b and K4 bit for bit against their plain versions."""
+def phase_codec_kernels(torch, ck, frames, densities, device):
+    """K3, K3b and K4 bit for bit against their plain versions: K3b at
+    the shape the uplink gave it (change_density's transitions of the
+    sequence), then all three on planes with a NaN and a signed-zero
+    tile."""
     errs = {"k3": 0.0, "k3b": 0.0, "k4": 0.0}
+    for thr, density in densities.items():
+        bd, bm = ck.delta_encode_batched(frames[1:], frames[:-1], threshold=thr)
+        pd, pm = ck.delta_encode_plain(frames[1:], frames[:-1], threshold=thr)
+        check(_bit_equal(torch, bd, pd) and _bit_equal(torch, bm, pm),
+              f"K3b at {tuple(bd.shape)}, threshold {thr}: differs from its plain version")
+        check(_bit_equal(torch, density, pm.mean(dim=(1, 2))),
+              f"change_density at threshold {thr} differs from its plain masks' mean")
+        errs["k3b"] = max(errs["k3b"], _value_err(torch, bd, pd), _value_err(torch, bm, pm))
+    log(f"[codec] K3b at change_density's {tuple(frames[1:].shape)}, thresholds "
+        f"{tuple(densities)}: delta and mask bit-identical to the plain version, "
+        f"change_density equal to the plain masks' mean")
     for h, w in ((128, 128), (240, 320)):
         f, r = _codec_planes(torch, frames, h, w, device, seed=h)
         for thr in STREAM_THRESHOLDS:
@@ -816,7 +833,7 @@ def main() -> int:
 
     for key in ck.launches:
         ck.launches[key] = 0
-    decoded = phase_uplink(torch, cref, frames)
+    decoded, densities = phase_uplink(torch, cref, frames)
     torch.cuda.synchronize()
     launches.update({"k3": ck.launches["delta_encode"],
                      "k3b": ck.launches["delta_encode_batched"],
@@ -824,7 +841,7 @@ def main() -> int:
     log(f"[uplink] launches: K3 {launches['k3']}, K3b {launches['k3b']}, K4 {launches['k4']}")
     check(min(launches["k3"], launches["k3b"], launches["k4"]) > 0,
           "a kernel of the uplink path was not launched")
-    errs = phase_codec_kernels(torch, ck, frames, device)
+    errs = phase_codec_kernels(torch, ck, frames, densities, device)
     step_launches, step_inputs, step_errs = phase_batched_step(
         torch, hm, tracker_mod, ops_mod, rs, pu, decoded, truth, device)
     launches.update(step_launches)

@@ -15,4 +15,5 @@ The package imports ``torch`` and numpy only; the tests hold it against
   wrappers, the plain versions and the stream machines.
 * ``data``    — synthetic RGBD sequences.
 * ``sim``     — the 30 Hz frame-drop clock.
+* ``bench``   — measurement scripts for the card (K1's occupancy).
 """

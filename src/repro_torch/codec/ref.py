@@ -139,7 +139,9 @@ class DeltaStreamEncoder:
     never stranded longer than the bound.
 
     Frames stay on their device: a CUDA frame is encoded by the kernels
-    K3 and K4.  Keyframes are copied, so a caller may reuse its tensor.
+    K3 and K4.  The encoder keeps its own copy of each reference and a
+    keyframe packet carries another, so neither the caller's frame nor
+    the packet aliases the encoder's state.
     """
 
     def __init__(
@@ -188,7 +190,7 @@ class DeltaStreamEncoder:
             self._since_key = 0
             self._deltas_left = None
             self._ref = torch.as_tensor(frame).to(torch.float32, copy=True)
-            return StreamPacket(seq, "key", seq, self._ref)
+            return StreamPacket(seq, "key", seq, self._ref.clone())
         h, w = frame.shape
         _check_blocks(h, w, self.block_h, self.block_w)
         kernels = _kernels()
@@ -215,8 +217,9 @@ class DeltaStreamDecoder:
     ``decode`` returns the reconstructed frame, or None (a NACK) when a
     delta references a reconstruction this decoder does not hold: a
     stale or missing reference must never be decoded against.  It
-    decodes on the payload's device (K4 for CUDA tensors) and hands out
-    its own copy of each keyframe.
+    decodes on the payload's device (K4 for CUDA tensors).  It keeps its
+    own copy of each reference and returns another, so changing a
+    decoded frame in place cannot corrupt the base of the next delta.
     """
 
     def __init__(self) -> None:
@@ -230,14 +233,14 @@ class DeltaStreamDecoder:
             self._ref = torch.as_tensor(packet.payload).to(torch.float32, copy=True)
             self._ref_seq = packet.seq
             self.decoded += 1
-            return self._ref
+            return self._ref.clone()
         if self._ref is None or packet.ref_seq != self._ref_seq:
             self.nacks += 1
             return None
         self._ref = _kernels().delta_decode(packet.payload, self._ref)
         self._ref_seq = packet.seq
         self.decoded += 1
-        return self._ref
+        return self._ref.clone()
 
 
 # ---------------------------------------------------------------------------

@@ -218,3 +218,21 @@ def test_stream_keyframes_are_copies():
     before = out.clone()
     frame += 1.0
     assert torch.equal(pkt.payload, before) and torch.equal(out, before)
+
+
+def test_stream_outputs_are_copies():
+    """Changing a decoded frame or a sent keyframe's payload in place
+    corrupts neither machine: at threshold 0 every later frame still
+    decodes bit for bit."""
+    frames = _sequence(n=10)
+    enc = tcr.DeltaStreamEncoder(keyframe_interval=4)
+    dec = tcr.DeltaStreamDecoder()
+    for f in frames:
+        pkt = enc.encode(torch.from_numpy(f))
+        out = dec.decode(pkt)
+        assert np.array_equal(_bits(out), _bits(f))
+        out.clamp_(max=0.0)
+        out += 1.0
+        if pkt.kind == "key":
+            pkt.payload.add_(1.0)
+    assert dec.decoded == len(frames)
