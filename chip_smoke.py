@@ -37,18 +37,37 @@ Phases (any failure exits non-zero and prints no result line):
      (each row equal to K1 on that client), updated by K2b at (4, 64, 27)
      (each swarm equal to K2), and scored again; the fused launches timed
      against 4 solo launches (per_client_vs_solo);
- 10. one {"kernels": [...]} line with all seven kernels, then the
+ 10. the quantized uplink: the clip through ``encode_frame`` ->
+     ``decode_frame`` (K6, K7, K3) in a closed loop at 16 and 8 bits over
+     (0, 10 m): every pixel within step/2 + 2 ulp(10) of the clipped
+     frame, each delta frame's exact wire bytes within 8 B of the
+     reference's identity; then the entropy stage: K5 on K3's threshold-0
+     residuals (equal to its plain version, and to the host coder's 64-word
+     chunk widths), the host coder's roundtrip, and its bytes over raw at
+     2 mm noise and on a noise-free clip;
+ 11. K5, K5b, K6, K6b and K7 bit for bit against their plain versions at
+     128x128 and 240x320, every packable width, (lo, hi) in (0, 1) and
+     (0.1, 10), with half-step ties and a NaN/+-inf/-0.0 tile (and K5 with
+     a width-32 and a width-0 tile); whether PyTorch's own division by a
+     Python float rounds those ties as the true division does;
+ 12. the codec model's density calibration on the card (K3b at 8x32)
+     against the port's CPU run: densities equal, (gain, floor) to 1e-9;
+ 13. in the batched step, K6b quantizes the 4 clients' frames and K5b
+     scans their 4 residual planes, each row equal to K6/K5 alone;
+ 14. one {"kernels": [...]} line with all twelve kernels, then the
      {"ok": ...} line last.
 
-Each path (the tracker, the uplink, the batched step) runs with the
-launch counts set to 0 just before it and read just after; a kernel of
-the path that was not launched fails the run.
+Each path (the tracker, the uplink, the quantized uplink with its
+entropy stage, the batched step) runs with the launch counts set to 0
+just before it and read just after; a kernel of the path that was not
+launched fails the run.
 
 Needs one CUDA card and nvcc; there is no CPU fallback.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -193,7 +212,6 @@ def phase_eval_agrees(tracker_mod, hs, frames, truth):
     """The main path's population evaluation on the card (forward
     kinematics + K1 through ops.render_score) against the plain
     objective on the CPU, for the same particles hs."""
-    import dataclasses
 
     cfg = configs()[1]
     cpu_cfg = dataclasses.replace(cfg, use_kernel=False)
@@ -464,7 +482,7 @@ def _wire_nbytes(cref, packet, shape):
     return cref.encoded_nbytes_exact((tiles != 0).any(dim=3).any(dim=1).float())
 
 
-def phase_uplink(torch, cref, frames):
+def phase_uplink(torch, cref, wire, frames):
     """Stream the sequence through the port's encoder and decoder on the
     card.  Returns the frames the 0.01 m stream decoded, and
     change_density's result at each threshold."""
@@ -472,9 +490,9 @@ def phase_uplink(torch, cref, frames):
     raw = t_count * h * w * 4
     decoded_lossy, densities = None, {}
     for thr in STREAM_THRESHOLDS:
-        enc = cref.DeltaStreamEncoder(threshold=thr)
-        dec = cref.DeltaStreamDecoder()
-        wire, worst, decoded = 0, 0.0, []
+        enc = wire.DeltaStreamEncoder(threshold=thr)
+        dec = wire.DeltaStreamDecoder()
+        nbytes, worst, decoded = 0, 0.0, []
         for t in range(t_count):
             packet = enc.encode(frames[t])
             got = dec.decode(packet)
@@ -486,15 +504,15 @@ def phase_uplink(torch, cref, frames):
             err = float((got - frames[t]).abs().max())
             check(err <= thr, f"stream at threshold {thr}: frame {t} off by {err:.4g}")
             worst = max(worst, err)
-            wire += _wire_nbytes(cref, packet, (h, w))
+            nbytes += _wire_nbytes(cref, packet, (h, w))
             decoded.append(got)
-        density = densities[thr] = cref.change_density(frames, threshold=thr)
+        density = densities[thr] = wire.change_density(frames, threshold=thr)
         check(density.shape == (t_count - 1,) and bool(torch.isfinite(density).all()),
               "change_density is malformed")
         log(f"[uplink] threshold {thr} m, keyframe every {enc.keyframe_interval}: "
             f"{t_count} frames decoded on the card, max |decoded - source| {worst:.4g} m"
             + (" (every frame bit-identical)" if thr == 0.0 else "")
-            + f"; wire {wire} B of {raw} B raw, ratio {wire / raw:.4f}")
+            + f"; wire {nbytes} B of {raw} B raw, ratio {nbytes / raw:.4f}")
         log(f"[uplink] change_density at {thr} m per transition: "
             + " ".join(f"{d:.4f}" for d in density.tolist())
             + f" (mean {float(density.mean()):.4f})")
@@ -502,8 +520,8 @@ def phase_uplink(torch, cref, frames):
             decoded_lossy = torch.stack(decoded)
 
     lost = 5
-    enc = cref.DeltaStreamEncoder(keyframe_interval=t_count, resync_bound=4)
-    dec = cref.DeltaStreamDecoder()
+    enc = wire.DeltaStreamEncoder(keyframe_interval=t_count, resync_bound=4)
+    dec = wire.DeltaStreamDecoder()
     resync = None
     for t in range(t_count):
         packet = enc.encode(frames[t])
@@ -595,16 +613,218 @@ def phase_codec_kernels(torch, ck, frames, densities, device):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# The quantized uplink (encode_frame/decode_frame: K6, K7, K3), the entropy
+# stage (K5 and the host coder), the quantizer kernels against their plain
+# versions, and the codec model's density calibration (K3b).
+
+QUANT_BITS = (16, 8)  # the rate controller's bits_ladder
+HEADER_NBYTES = 64
+
+
+def phase_quant_uplink(torch, ck, cref, wire, frames, lo, hi):
+    """The clip through the quantized wire format in a closed loop on the
+    card: frame 0 is a keyframe (K6, K7), every later frame is encoded
+    against the receiver's previous reconstruction and decoded."""
+    import numpy as np
+
+    t_count, h, w = frames.shape
+    raw = h * w * 4
+    tol_ulp = 2 * float(np.spacing(np.float32(hi)))
+    out = {}
+    for bits in QUANT_BITS:
+        step = cref.quant_step(lo, hi, bits)
+        words = ck.quantize_pack(frames[0], lo, hi, bits=bits)
+        recon = ck.unpack_dequantize(words, lo, hi, bits=bits)
+        wire_nbytes = HEADER_NBYTES + words.numel() * 4
+        densities, worst, identity_gap = [], 0.0, 0.0
+        for t in range(t_count):
+            if t:
+                words, mask = wire.encode_frame(frames[t], recon, lo, hi, bits=bits)
+                recon = wire.decode_frame(words, mask, recon, lo, hi, bits=bits)
+                density = float(mask.mean())
+                exact = cref.encoded_nbytes_exact(mask, bits=bits,
+                                                  header_nbytes=HEADER_NBYTES)
+                modeled = HEADER_NBYTES + raw * density * bits / 32 + mask.numel() / 8
+                identity_gap = max(identity_gap, abs(exact - modeled))
+                check(abs(exact - modeled) <= 8,
+                      f"quantized uplink at {bits} bits, frame {t}: {exact} B on the wire "
+                      f"against the identity's {modeled:.1f} B")
+                wire_nbytes += exact
+                densities.append(density)
+            check(recon.is_cuda and recon.shape == (h, w) and recon.dtype == torch.float32,
+                  f"quantized uplink at {bits} bits: frame {t} did not decode on the card")
+            err = float((recon - frames[t].clamp(lo, hi)).abs().max())
+            check(err <= step / 2 + tol_ulp,
+                  f"quantized uplink at {bits} bits: frame {t} off by {err:.6g} "
+                  f"> step/2 + 2 ulp = {step / 2 + tol_ulp:.6g}")
+            worst = max(worst, err)
+        ratio = wire_nbytes / (raw * t_count)
+        out[bits] = {"density": statistics.fmean(densities), "ratio": ratio, "worst": worst}
+        log(f"[quant] {bits} bits over ({lo}, {hi}) m, step {step:.6g} m: {t_count} frames "
+            f"decoded on the card in a closed loop, max |decoded - clip(frame)| {worst:.6g} "
+            f"(<= step/2 + 2 ulp = {step / 2 + tol_ulp:.6g}); mean change density "
+            f"{out[bits]['density']:.4f}; wire {wire_nbytes} B of {raw * t_count} B raw, "
+            f"ratio {ratio:.4f} (keyframe + {t_count - 1} deltas, {HEADER_NBYTES} B headers); "
+            f"exact bytes within {identity_gap:.3f} B of the model's identity")
+    return out
+
+
+def phase_entropy(torch, ck, cref, clips):
+    """The entropy stage on K3's threshold-0 residual planes of each clip:
+    K5's per-tile widths (against the plain version and the host coder's
+    chunk widths), the host coder's roundtrip, and its bytes over raw."""
+    import numpy as np
+
+    ratios = {}
+    for label, clip in clips.items():
+        t_count, h, w = clip.shape
+        coded = raw = 0
+        for t in range(1, t_count):
+            delta, _ = ck.delta_encode(clip[t], clip[t - 1])
+            widths = ck.significant_bit_widths(delta)
+            host = delta.cpu()
+            check(_bit_equal(torch, widths.cpu(), ck.significant_bit_widths_plain(host[None])[0]),
+                  f"K5 on the {label} residual {t} differs from its plain version")
+            words = host.numpy()
+            if w == cref.DEFAULT_BLOCK_W:  # an (8, 128) tile holds 16 whole 64-word chunks
+                chunks = words.view(np.uint32).reshape(-1, cref.ENTROPY_TILE).max(axis=1)
+                chunk_widths = np.array([int(c).bit_length() for c in chunks])
+                per_tile = chunk_widths.reshape(widths.numel(), -1).max(axis=1)
+                check(np.array_equal(per_tile, widths.cpu().numpy().ravel()),
+                      f"K5 on the {label} residual {t} disagrees with the coder's chunk widths")
+            data = cref.entropy_encode_words(words)
+            check(np.array_equal(cref.entropy_decode_words(data, words.size), words.ravel()),
+                  f"the entropy coder does not roundtrip the {label} residual {t}")
+            coded += len(data)
+            raw += words.size * 4
+        ratios[label] = coded / raw
+        log(f"[entropy] {label} clip: {t_count - 1} threshold-0 residual planes of {h}x{w}: "
+            f"K5 widths equal the plain version and the coder's 64-word chunk widths; "
+            f"coder roundtrip bit-identical; {coded} B of {raw} B raw, ratio "
+            f"{ratios[label]:.4f} (measured; sim/hardware.codec_point assumes 0.55)")
+    return ratios
+
+
+def _quant_planes(torch, h, w, lo, hi, bits, device, seed, b=CLIENTS):
+    """(b, h, w) planes: uniform over 10% beyond [lo, hi] on both sides,
+    exact half-step ties in every other row, and in tile (0, 0) NaN,
+    +-inf, -0.0, the range's ends and points just outside them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    span = hi - lo
+    x = rng.uniform(lo - 0.1 * span, hi + 0.1 * span, (b, h, w)).astype(np.float32)
+    step = np.float32((hi - lo) / ((1 << bits) - 1))
+    k = rng.integers(0, (1 << bits) - 1, (b, h // 2, w))
+    x[:, ::2] = np.float32(lo) + (k + 0.5).astype(np.float32) * step
+    x[:, 1, :10] = [np.nan, np.inf, -np.inf, -0.0, 0.0, lo, hi, lo - 1.0, hi + 1.0, np.nan]
+    return torch.from_numpy(x).to(device)
+
+
+def phase_quant_kernels(torch, ck, cref, frames, device):
+    """K6b/K6 and K7 at every packable width and K5b/K5, bit for bit
+    against their plain versions run on the CPU copy of the inputs."""
+    errs = {"k5": 0.0, "k5b": 0.0, "k6": 0.0, "k6b": 0.0, "k7": 0.0}
+    ties = moved = 0
+    for h, w in ((128, 128), (240, 320)):
+        for lo, hi in ((0.0, 1.0), (0.1, 10.0)):
+            for bits in cref.PACKABLE_BITS:
+                x = _quant_planes(torch, h, w, lo, hi, bits, device, seed=bits + h)
+                words = ck.quantize_pack_batched(x, lo, hi, bits=bits)
+                host = x.cpu()
+                want = ck.quantize_pack_plain(host, lo, hi, bits=bits)
+                check(_bit_equal(torch, words.cpu(), want),
+                      f"K6b at {h}x{w}, ({lo}, {hi}), {bits} bits: differs from its plain version")
+                check(_bit_equal(torch, ck.quantize_pack_plain(x, lo, hi, bits=bits).cpu(), want),
+                      f"the quantizer's plain version on the card differs from the CPU's "
+                      f"at {h}x{w}, ({lo}, {hi}), {bits} bits")
+                errs["k6b"] = max(errs["k6b"], _value_err(torch, words.cpu(), want))
+                # PyTorch's own CUDA division by a Python float, on the same ties
+                step = cref.quant_step(lo, hi, bits)
+                clipped = torch.nan_to_num(x.clamp(lo, hi), nan=lo) - lo
+                by_float = torch.round(clipped / step)
+                by_tensor = torch.round(clipped / torch.tensor(step, device=device))
+                moved += int((by_float != by_tensor).sum())
+                ties += int((clipped / torch.tensor(step, device=device)).frac().eq(0.5).sum())
+                for i in range(CLIENTS):
+                    solo = ck.quantize_pack(x[i], lo, hi, bits=bits)
+                    check(_bit_equal(torch, solo, words[i]),
+                          f"K6b row {i} at {h}x{w}, {bits} bits differs from K6 on that plane")
+                    errs["k6"] = max(errs["k6"], _value_err(torch, solo.cpu(), want[i]))
+                    values = ck.unpack_dequantize(solo, lo, hi, bits=bits)
+                    plain = ck.unpack_dequantize_plain(want[i], lo, hi, bits=bits)
+                    check(_bit_equal(torch, values.cpu(), plain),
+                          f"K7 at {h}x{w}, ({lo}, {hi}), {bits} bits: differs from its plain version")
+                    errs["k7"] = max(errs["k7"], _value_err(torch, values.cpu(), plain))
+                # one plane a float off 16-byte alignment: the kernels' scalar path
+                flat = x.reshape(-1)
+                shifted = flat[1:1 + h * w].view(h, w)
+                check(_bit_equal(torch, ck.quantize_pack(shifted, lo, hi, bits=bits).cpu(),
+                                 ck.quantize_pack_plain(shifted.cpu(), lo, hi, bits=bits)),
+                      f"K6 on an unaligned plane at {h}x{w}, {bits} bits differs")
+        f, r = _codec_planes(torch, frames, h, w, device, seed=h)
+        deltas, _ = ck.delta_encode_batched(f, r)
+        deltas[:, :8, -128:] = 0  # an all-zero tile: width 0
+        deltas[:, 8, -1] = -1  # a tile whose max word has the sign bit set: width 32
+        widths = ck.significant_bit_widths_batched(deltas)
+        want = ck.significant_bit_widths_plain(deltas.cpu())
+        check(_bit_equal(torch, widths.cpu(), want),
+              f"K5b at {h}x{w} differs from its plain version")
+        check(bool((widths[:, 0, -1] == 0).all()) and bool((widths[:, 1, -1] == 32).all()),
+              f"K5b at {h}x{w}: the zero tile or the sign-bit tile has the wrong width")
+        errs["k5b"] = max(errs["k5b"], _value_err(torch, widths.cpu(), want))
+        for i in range(CLIENTS):
+            solo = ck.significant_bit_widths(deltas[i])
+            check(_bit_equal(torch, solo, widths[i]), f"K5b row {i} at {h}x{w} differs from K5")
+            errs["k5"] = max(errs["k5"], _value_err(torch, solo.cpu(), want[i]))
+        log(f"[quant] {h}x{w}: K6b (B={CLIENTS}, rows = K6), K7 at bits "
+            f"{cref.PACKABLE_BITS} and (lo, hi) in (0, 1), (0.1, 10), and K5b (rows = K5) "
+            f"bit-identical to their plain versions on the CPU; ties, NaN/+-inf/-0.0, "
+            f"a width-32 and a width-0 tile, and a plane off 16-byte alignment included")
+    log(f"[quant] the plain quantizer on the card divides by a CUDA tensor: it equals the "
+        f"CPU's on every plane. PyTorch's division by a Python float moved {moved} of "
+        f"{ties} exact half-step ties on this card")
+    return errs
+
+
+def phase_calibration(torch, ck, wire, rate, rgbd):
+    """The rate controller's motion -> density fit on the card (K3b at the
+    calibration's 8x32 tile) against the port's CPU run."""
+    before = ck.launches["delta_encode_batched"]
+    gain, floor = rate.calibrate_density_map(device="cuda")
+    torch.cuda.synchronize()
+    launched = ck.launches["delta_encode_batched"] - before
+    check(launched == 1, f"calibrate_density_map launched K3b {launched} times, expected 1")
+    cpu_gain, cpu_floor = rate.calibrate_density_map(device="cpu")
+    cfg = rgbd.SequenceConfig(num_frames=60, noise_std=0.0)  # the calibration's default
+    kw = dict(threshold=0.0, block_h=8, block_w=32)
+    card = wire.change_density(rgbd.render_sequence(cfg, device="cuda")[0], **kw).cpu()
+    host = wire.change_density(rgbd.render_sequence(cfg, device="cpu")[0], **kw)
+    check(_bit_equal(torch, card, host),
+          "change_density at the calibration's tile differs between the card and the CPU")
+    rel = max(abs(gain - cpu_gain) / abs(cpu_gain), abs(floor - cpu_floor) / abs(cpu_floor))
+    check(rel <= 1e-9, f"calibration on the card ({gain!r}, {floor!r}) against the CPU "
+                       f"({cpu_gain!r}, {cpu_floor!r}): relative gap {rel:.3g} > 1e-9")
+    log(f"[calibrate] density ~= gain * motion + floor on the card (K3b at 8x32, "
+        f"{cfg.num_frames} frames, noise 0): gain {gain!r}, floor {floor!r}; CPU: "
+        f"{cpu_gain!r}, {cpu_floor!r} (relative gap {rel:.3g}); {card.numel()} densities "
+        f"equal, mean {float(card.mean()):.4f}")
+    return gain, floor
+
+
 def _bound(ops, nbytes):
     """The least time (ms) and what sets it: operations or bytes."""
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_batched_step(torch, hm, tracker_mod, ops_mod, rs, pu, decoded, truth, device):
-    """B = 4 clients' populations scored by K1b, updated by K2b and scored
-    again: the edge server's step.  Returns its launch counts, its
-    inputs (for timing) and its errors against the plain versions."""
+def phase_batched_step(torch, hm, tracker_mod, ops_mod, rs, pu, ck, decoded, truth, device,
+                       q_lo, q_hi):
+    """B = 4 clients' frames quantized by K6b and their residual planes
+    width-scanned by K5b; their populations scored by K1b, updated by K2b
+    and scored again: the edge server's step.  Returns its launch counts,
+    its inputs (for timing) and its errors against the plain versions."""
     cfg = configs()[1]
     frame_idx = [1 + 7 * b for b in range(CLIENTS)]
     h_prev = truth[[i - 1 for i in frame_idx]]
@@ -628,7 +848,15 @@ def phase_batched_step(torch, hm, tracker_mod, ops_mod, rs, pu, decoded, truth, 
     r2 = torch.rand(hs.shape, generator=gen, device=device)
     torch.cuda.synchronize()
 
+    prev = decoded[[i - 1 for i in frame_idx]]
+    residuals, _ = ck.delta_encode_batched(decoded[frame_idx], prev)
+    torch.cuda.synchronize()
+
     rs.launches = rs.launches_batched = pu.launches = pu.launches_batched = 0
+    for key in ck.launches:
+        ck.launches[key] = 0
+    words = ck.quantize_pack_batched(decoded[frame_idx], q_lo, q_hi, bits=8)
+    widths = ck.significant_bit_widths_batched(residuals)
     spheres = hm.pack_spheres(hs)
     scores = ops_mod.render_score_batched(spheres, rays, depth, masks)
     gbest = hs[torch.arange(CLIENTS, device=device), torch.argmin(scores, dim=1)]
@@ -636,10 +864,25 @@ def phase_batched_step(torch, hm, tracker_mod, ops_mod, rs, pu, decoded, truth, 
     scores_new = ops_mod.render_score_batched(
         hm.pack_spheres(hm.normalize_configuration(x_new)), rays, depth, masks)
     torch.cuda.synchronize()
-    launches = {"k1b": rs.launches_batched, "k2b": pu.launches_batched}
-    check(launches == {"k1b": 2, "k2b": 1} and rs.launches == 0 and pu.launches == 0,
-          f"batched step launched K1b {rs.launches_batched}, K2b {pu.launches_batched}, "
-          f"K1 {rs.launches}, K2 {pu.launches}: expected 2, 1, 0, 0")
+    launches = {"k1b": rs.launches_batched, "k2b": pu.launches_batched,
+                "k6b": ck.launches["quantize_pack_batched"],
+                "k5b": ck.launches["significant_bit_widths_batched"]}
+    solo = rs.launches + pu.launches + ck.launches["quantize_pack"] + ck.launches[
+        "significant_bit_widths"]
+    check(launches == {"k1b": 2, "k2b": 1, "k6b": 1, "k5b": 1} and solo == 0,
+          f"batched step launched {launches} and {solo} unbatched kernels: expected K1b 2, "
+          f"K2b 1, K6b 1, K5b 1 and no unbatched kernel")
+    for b in range(CLIENTS):
+        check(_bit_equal(torch, words[b], ck.quantize_pack(decoded[frame_idx[b]], q_lo, q_hi, bits=8)),
+              f"K6b row {b} differs from K6 on that client's frame")
+        check(_bit_equal(torch, widths[b], ck.significant_bit_widths(residuals[b])),
+              f"K5b row {b} differs from K5 on that client's residual plane")
+    check(words.shape == (CLIENTS, *decoded.shape[1:-1], decoded.shape[-1] // 4)
+          and widths.shape == (CLIENTS, -(-decoded.shape[1] // 8), -(-decoded.shape[2] // 128)),
+          "batched step: K6b's words or K5b's widths are malformed")
+    log(f"[batched] K6b quantized the {CLIENTS} clients' frames at 8 bits over ({q_lo}, {q_hi}) m "
+        f"in one launch, K5b scanned their residual planes in one (max width per client "
+        f"{widths.amax(dim=(1, 2)).tolist()}); each row equal to K6/K5 on that client")
     for name, t in (("scores", scores), ("scores after the update", scores_new)):
         check(t.shape == (CLIENTS, n) and bool(torch.isfinite(t).all()),
               f"batched step: {name} malformed")
@@ -672,7 +915,8 @@ def phase_batched_step(torch, hm, tracker_mod, ops_mod, rs, pu, decoded, truth, 
         f"(tol rtol {K1_TOL_RTOL} + CLAMP_T/|B| + 1e-6). K2b at {tuple(hs.shape)} "
         f"bit-identical to K2 per swarm; max|err| against plain {k2b_err:.3g} (tol {K2_TOL})")
     inputs = {"score": (spheres, rays, depth, masks),
-              "update": (hs, v, pbest, gbest, r1, r2, lo, hi)}
+              "update": (hs, v, pbest, gbest, r1, r2, lo, hi),
+              "frames": decoded[frame_idx], "residuals": residuals}
     return launches, inputs, {"k1b": k1b_err, "k2b": k2b_err}
 
 
@@ -778,6 +1022,67 @@ def phase_slice2_timing(torch, rs, pu, ck, frames, step_inputs, device):
     return out
 
 
+def phase_slice3_timing(torch, ck, frames, step_inputs, device, lo, hi):
+    """K5, K5b, K6, K6b and K7 at their paths' shapes (128x128, bits 8;
+    B = 4 for the batched kernels), and K6/K7 also at 240x320: CUDA
+    events, profiler device time, plain version, bound."""
+    bits = 8
+    out = {}
+
+    def row(key, label, fn, plain, names, ops, nbytes, reps=500):
+        ms = _time_ms(torch, fn, reps)
+        dev = _device_ms(torch, fn, 50, names)
+        plain_ms = _time_ms(torch, plain, 50)
+        bound, by = _bound(ops, nbytes)
+        log(f"[time] {label}: {_us(ms)} (device {_us(dev)}), plain {_us(plain_ms)}, bound "
+            f"{bound * 1e3:.4f} us ({nbytes} B, {ops} ops; {by}); no single PyTorch call "
+            f"packs codes or scans bit widths")
+        if key:
+            out[key] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound,
+                            bound_by=by, library_ms=None)
+
+    # ops per pixel: K6 clip (2), subtract, divide, round, clip (2), convert,
+    # shift, or = 10; K7 shift, and, convert, multiply, add = 5; K5 one
+    # unsigned max per word.
+    wide, _ = _codec_planes(torch, frames, 240, 320, device, seed=1)
+    for key, label, x in (("k6", "K6 at 128x128", frames[1]), (None, "K6 at 240x320", wide[0])):
+        h, w = x.shape
+        row(key, label + f", {bits} bits", lambda: ck.quantize_pack(x, lo, hi, bits=bits),
+            lambda: ck.quantize_pack_plain(x, lo, hi, bits=bits), ["quantize_pack_kernel"],
+            10 * h * w, 4 * h * w + h * w * bits // 8)
+        words = ck.quantize_pack(x, lo, hi, bits=bits)
+        row("k7" if key else None, label.replace("K6", "K7") + f", {bits} bits",
+            lambda: ck.unpack_dequantize(words, lo, hi, bits=bits),
+            lambda: ck.unpack_dequantize_plain(words, lo, hi, bits=bits),
+            ["unpack_dequantize_kernel"], 5 * h * w, 4 * h * w + h * w * bits // 8)
+    xs = step_inputs["frames"]
+    b, h, w = xs.shape
+    row("k6b", f"K6b at ({b}, {h}, {w}), {bits} bits",
+        lambda: ck.quantize_pack_batched(xs, lo, hi, bits=bits),
+        lambda: ck.quantize_pack_plain(xs, lo, hi, bits=bits), ["quantize_pack_kernel"],
+        10 * b * h * w, 4 * b * h * w + b * h * w * bits // 8)
+    tiles = -(-h // 8) * -(-w // 128)
+    delta, _ = ck.delta_encode(frames[1], frames[0])
+    row("k5", f"K5 at {h}x{w}", lambda: ck.significant_bit_widths(delta),
+        lambda: ck.significant_bit_widths_plain(delta[None]), ["sig_width_kernel"],
+        h * w, 4 * (h * w + tiles))
+    residuals = step_inputs["residuals"]
+    row("k5b", f"K5b at ({b}, {h}, {w})", lambda: ck.significant_bit_widths_batched(residuals),
+        lambda: ck.significant_bit_widths_plain(residuals), ["sig_width_kernel"],
+        b * h * w, 4 * b * (h * w + tiles))
+    return out
+
+
+SLICE3_KERNELS = [
+    # key, name, replaces (all in src/repro_torch/csrc/quant_codec.cu)
+    ("k5", "significant_bit_widths", "src/repro/codec/kernels.py:229"),
+    ("k5b", "significant_bit_widths_batched", "src/repro/codec/kernels.py:260"),
+    ("k6", "quantize_pack", "src/repro/codec/kernels.py:331"),
+    ("k6b", "quantize_pack_batched", "src/repro/codec/kernels.py:409"),
+    ("k7", "unpack_dequantize", "src/repro/codec/kernels.py:370"),
+]
+
+
 SLICE2_KERNELS = [
     # key, name, source, replaces
     ("k1b", "render_score_sums_batched", "src/repro_torch/csrc/render_score.cu",
@@ -805,7 +1110,10 @@ def main() -> int:
     from repro_torch.core import tracker as tracker_mod
     from repro_torch.data import rgbd
     from repro_torch.codec import kernels as ck
+    from repro_torch.codec import rate
     from repro_torch.codec import ref as cref
+    from repro_torch.codec import wire
+    from repro_torch.core.camera import BACKGROUND_DEPTH
     from repro_torch.kernels import _build
     from repro_torch.kernels import ops as ops_mod
     from repro_torch.kernels import pso_update as pu
@@ -833,7 +1141,7 @@ def main() -> int:
 
     for key in ck.launches:
         ck.launches[key] = 0
-    decoded, densities = phase_uplink(torch, cref, frames)
+    decoded, densities = phase_uplink(torch, cref, wire, frames)
     torch.cuda.synchronize()
     launches.update({"k3": ck.launches["delta_encode"],
                      "k3b": ck.launches["delta_encode_batched"],
@@ -842,18 +1150,43 @@ def main() -> int:
     check(min(launches["k3"], launches["k3b"], launches["k4"]) > 0,
           "a kernel of the uplink path was not launched")
     errs = phase_codec_kernels(torch, ck, frames, densities, device)
+
+    # the quantized uplink and its entropy stage, on a clip with 2 mm noise
+    # and on the same clip without noise (rendered before the counts reset)
+    lo, hi = 0.0, BACKGROUND_DEPTH
+    clean, _ = rgbd.render_sequence(dataclasses.replace(seq, noise_std=0.0), device=device)
+    torch.cuda.synchronize()
+    for key in ck.launches:
+        ck.launches[key] = 0
+    phase_quant_uplink(torch, ck, cref, wire, frames, lo, hi)
+    phase_entropy(torch, ck, cref, {"noise 2 mm": frames, "noise-free": clean})
+    torch.cuda.synchronize()
+    quant = {"k3": ck.launches["delta_encode"], "k5": ck.launches["significant_bit_widths"],
+             "k6": ck.launches["quantize_pack"], "k7": ck.launches["unpack_dequantize"]}
+    log(f"[quant] launches on the quantized uplink and entropy stage: K3 {quant['k3']}, "
+        f"K5 {quant['k5']}, K6 {quant['k6']}, K7 {quant['k7']}")
+    check(min(quant.values()) > 0, "a kernel of the quantized uplink path was not launched")
+    launches["k3"] += quant.pop("k3")
+    launches.update(quant)
+    errs.update(phase_quant_kernels(torch, ck, cref, frames, device))
+    phase_calibration(torch, ck, wire, rate, rgbd)
+
     step_launches, step_inputs, step_errs = phase_batched_step(
-        torch, hm, tracker_mod, ops_mod, rs, pu, decoded, truth, device)
+        torch, hm, tracker_mod, ops_mod, rs, pu, ck, decoded, truth, device, lo, hi)
     launches.update(step_launches)
     errs.update(step_errs)
     timing = phase_slice2_timing(torch, rs, pu, ck, frames, step_inputs, device)
-    for key, name, source, replaces in SLICE2_KERNELS:
+    timing.update(phase_slice3_timing(torch, ck, frames, step_inputs, device, lo, hi))
+    rows = SLICE2_KERNELS + [(key, name, "src/repro_torch/csrc/quant_codec.cu", replaces)
+                             for key, name, replaces in SLICE3_KERNELS]
+    for key, name, source, replaces in rows:
         t = timing[key]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[key], "max_abs_err": errs[key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "device_ms": t["device_ms"]})
+    check(len(kernels) == 12, f"{len(kernels)} kernels in the kernels line, expected 12")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,25 +1,38 @@
-"""Temporal delta codec: the CUDA kernels K3, K3b and K4 and their wrappers.
+"""The uplink codec's CUDA kernels and their wrappers.
 
-Replace the Pallas TPU kernels ``repro/codec/kernels.py:delta_encode``,
-``delta_encode_batched`` and ``delta_decode``.  Per (block_h, block_w)
-tile, a tile is changed when ``max |frame - ref| > threshold``; the delta
-is the XOR of the float32 bit patterns on changed tiles and 0 elsewhere,
-and the mask is 1.0 on changed tiles.  The decode XORs the delta back
-into the reference's bits.
+Replace the Pallas TPU kernels of ``repro/codec/kernels.py``:
 
-The kernels are ``csrc/delta_codec.cu``, which says what bounds them on
-an H100 (bytes, and at one 128x128 plane the launch) and how NaN and
-signed zeros are kept as the reference has them.  K3 is K3b's B = 1
-launch, so each client of K3b equals K3 on that client bit for bit.
+* K3 ``delta_encode``, K3b ``delta_encode_batched`` and K4
+  ``delta_decode`` (``csrc/delta_codec.cu``): per (block_h, block_w)
+  tile, a tile is changed when ``max |frame - ref| > threshold``; the
+  delta is the XOR of the float32 bit patterns on changed tiles and 0
+  elsewhere, and the mask is 1.0 on changed tiles.  The decode XORs the
+  delta back into the reference's bits.
+* K6 ``quantize_pack``, K6b ``quantize_pack_batched`` and K7
+  ``unpack_dequantize`` (``csrc/quant_codec.cu``): ``bits``-wide codes,
+  round half to even of a true float32 division, ``32 // bits`` codes
+  packed per int32 word, and ``lo + code * step`` back.
+* K5 ``significant_bit_widths`` and K5b ``significant_bit_widths_batched``
+  (``csrc/quant_codec.cu``): per tile, the bit length of the tile's max
+  word read as uint32, the entropy stage's side information.
+
+The ``.cu`` files say what bounds each kernel on an H100 (bytes, and at
+one 128x128 plane the launch) and how NaN, infinities, signed zeros and
+half-step ties come out as in the reference's oracle.  Each unbatched
+kernel is its batched kernel's B = 1 launch, so each row of a batched
+call equals the unbatched call on that row bit for bit.
 
 The wrappers keep the reference's behaviour that callers can observe:
-an unaligned plane acts as if zero-padded to whole tiles, the delta is
-cropped back to (H, W), and the float32 mask covers the padded tile
-grid, ``(ceil(H/bh), ceil(W/bw))`` with a leading B in the batched
-wrapper.  For a CUDA tensor a wrapper launches its kernel, or raises;
-for a CPU tensor it runs the plain version (``delta_encode_plain``,
-``delta_decode_plain``: the shape-strict oracles of ``codec/ref.py``
-on the padded plane).  ``launches`` counts each kernel's launches.
+an unaligned plane acts as if zero-padded to whole tiles, outputs are
+cropped back (the delta to (H, W), the words to (H, W*bits/32), the
+values to (H, wpk*32/bits)), and the per-tile outputs (the float32 mask,
+the int32 widths) cover the padded tile grid ``(ceil(H/bh),
+ceil(W/bw))``, with a leading B in the batched wrappers; a pad tile
+reads width 0.  ``quantize_pack`` raises when W is not a multiple of
+``32 // bits``.  For a CUDA tensor a wrapper launches its kernel, or
+raises; for a CPU tensor it runs the plain version beside it (the
+``*_plain`` functions, built on the oracles of ``codec/ref.py``).
+``launches`` counts each kernel's launches.
 """
 
 from __future__ import annotations
@@ -34,7 +47,11 @@ from repro_torch.codec.ref import delta_decode as delta_decode_plain
 from repro_torch.kernels import _build
 
 # Launches of each CUDA kernel since the counts were last set to 0.
-launches = {"delta_encode": 0, "delta_encode_batched": 0, "delta_decode": 0}
+launches = {
+    "delta_encode": 0, "delta_encode_batched": 0, "delta_decode": 0,
+    "significant_bit_widths": 0, "significant_bit_widths_batched": 0,
+    "quantize_pack": 0, "quantize_pack_batched": 0, "unpack_dequantize": 0,
+}
 
 
 def _pad_plane(x: torch.Tensor, block_h: int, block_w: int) -> torch.Tensor:
@@ -184,4 +201,233 @@ def delta_decode(
             d.data_ptr(), r.data_ptr(), out.data_ptr(), n, _build.stream_handle(device))
     _build.check(err, "delta_decode")
     launches["delta_decode"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# entropy stage: per-tile significant-bit widths (K5, K5b)
+# ---------------------------------------------------------------------------
+
+_BIT_THRESHOLDS = [1 << k for k in range(32)]
+
+
+def significant_bit_widths_plain(
+    deltas: torch.Tensor,  # (B, H, W) int
+    *,
+    block_h: int = DEFAULT_BLOCK_H,
+    block_w: int = DEFAULT_BLOCK_W,
+) -> torch.Tensor:
+    """The plain version of K5b: per tile of each zero-padded plane, the
+    bit length of the max word read as uint32, ``(B, ceil(H/bh),
+    ceil(W/bw)) i32``.  It goes through int64 (``& 0xFFFFFFFF``), since
+    torch's uint32 support is thin, and counts ``m >= 2**k`` over k in
+    [0, 32) as the reference kernel does."""
+    d = _pad_plane(deltas.to(torch.int32), block_h, block_w).to(torch.int64) & 0xFFFFFFFF
+    b, hp, wp = d.shape
+    tiles = d.reshape(b, hp // block_h, block_h, wp // block_w, block_w)
+    m = torch.amax(tiles, dim=(2, 4))
+    thresholds = torch.tensor(_BIT_THRESHOLDS, dtype=torch.int64, device=d.device)
+    return (m[..., None] >= thresholds).sum(-1).to(torch.int32)
+
+
+def _check_words(words: torch.Tensor, ndim: int, name: str) -> None:
+    if words.dim() != ndim:
+        want = "(H, W)" if ndim == 2 else "(B, H, W)"
+        raise ValueError(f"{name} {tuple(words.shape)}: expected a plane of shape {want}")
+    if words.dtype != torch.int32:
+        raise TypeError(f"{name} has dtype {words.dtype}, expected int32")
+
+
+def _widths_launch(deltas, block_h, block_w):
+    """One launch of the width kernel over (B, H, W) residual planes."""
+    device = deltas.device
+    b, h, w = deltas.shape
+    tiles = (-(-h // block_h), -(-w // block_w))
+    if b * h * w >= 2**31:
+        raise ValueError("the kernel indexes the planes with 32-bit ints")
+    out = torch.empty((b, *tiles), dtype=torch.int32, device=device)
+    if b * h * w == 0:
+        return out, False
+    d = deltas.contiguous()
+    with torch.cuda.device(device):
+        err = _build.library().significant_bit_widths_launch(
+            d.data_ptr(), out.data_ptr(), b, h, w, block_h, block_w,
+            _build.stream_handle(device))
+    _build.check(err, "significant_bit_widths")
+    return out, True
+
+
+def significant_bit_widths(
+    delta_bits: torch.Tensor,  # (H, W) i32 XOR residual plane
+    *,
+    block_h: int = DEFAULT_BLOCK_H,
+    block_w: int = DEFAULT_BLOCK_W,
+) -> torch.Tensor:
+    """Per-tile significant-bit widths of a residual plane, ``(ceil(H/bh),
+    ceil(W/bw)) i32`` in [0, 32]: the entropy stage's device half.  A
+    tile's coded size is ``ceil(tile_samples * width / 8) + 1`` bytes."""
+    _check_words(delta_bits, 2, "delta_bits")
+    _check_tile(block_h, block_w)
+    if not delta_bits.is_cuda:
+        return significant_bit_widths_plain(delta_bits[None], block_h=block_h,
+                                            block_w=block_w)[0]
+    out, launched = _widths_launch(delta_bits[None], block_h, block_w)
+    launches["significant_bit_widths"] += launched
+    return out[0]
+
+
+def significant_bit_widths_batched(
+    deltas: torch.Tensor,  # (B, H, W) i32
+    *,
+    block_h: int = DEFAULT_BLOCK_H,
+    block_w: int = DEFAULT_BLOCK_W,
+    path: str = "grid",
+) -> torch.Tensor:
+    """B clients' residual planes width-scanned together, ``(B,
+    ceil(H/bh), ceil(W/bw)) i32``: ``path="grid"`` is one launch (K5b),
+    ``path="vmap"`` runs ``significant_bit_widths`` per client.  Each row
+    equals the unbatched call on that client."""
+    if path not in ("grid", "vmap"):
+        raise ValueError(f"unknown path {path!r}")
+    _check_words(deltas, 3, "deltas")
+    _check_tile(block_h, block_w)
+    if path == "vmap":
+        return torch.stack([significant_bit_widths(d, block_h=block_h, block_w=block_w)
+                            for d in deltas])
+    if not deltas.is_cuda:
+        return significant_bit_widths_plain(deltas, block_h=block_h, block_w=block_w)
+    out, launched = _widths_launch(deltas, block_h, block_w)
+    launches["significant_bit_widths_batched"] += launched
+    return out
+
+
+# ---------------------------------------------------------------------------
+# quantize + pack (K6, K6b) and unpack + dequantize (K7)
+# ---------------------------------------------------------------------------
+
+
+def quantize_pack_plain(
+    depths: torch.Tensor,  # (..., W) float
+    lo: float,
+    hi: float,
+    *,
+    bits: int = 8,
+) -> torch.Tensor:
+    """The plain version of K6 and K6b: ``codec.ref``'s quantizer and
+    packer over the last axis, ``(..., W * bits / 32) i32``."""
+    return _ref.pack_codes(_ref.quantize_codes(depths, lo, hi, bits), bits)
+
+
+def unpack_dequantize_plain(
+    words: torch.Tensor,  # (..., wpk) i32
+    lo: float,
+    hi: float,
+    *,
+    bits: int = 8,
+) -> torch.Tensor:
+    """The plain version of K7: ``codec.ref.unpack_dequantize``."""
+    return _ref.unpack_dequantize(words, lo, hi, bits=bits)
+
+
+def _check_plane(depth: torch.Tensor, ndim: int, bits: int) -> int:
+    ratio = _ref._check_bits(bits)
+    if depth.dim() != ndim:
+        want = "(H, W)" if ndim == 2 else "(B, H, W)"
+        raise ValueError(f"depth {tuple(depth.shape)}: expected a plane of shape {want}")
+    if depth.shape[-1] % ratio:
+        raise ValueError(f"width {depth.shape[-1]} not divisible by pack ratio {ratio}")
+    return ratio
+
+
+def _quantize_launch(depths, lo, hi, bits):
+    """One launch of the quantizer over (..., W) planes."""
+    device = depths.device
+    ratio = 32 // bits
+    if depths.numel() >= 2**31:
+        raise ValueError("the kernel indexes the planes with 32-bit ints")
+    out = torch.empty((*depths.shape[:-1], depths.shape[-1] // ratio), dtype=torch.int32,
+                      device=device)
+    if out.numel() == 0:
+        return out, False
+    x = _build.kernel_input("depth", depths, device)
+    with torch.cuda.device(device):
+        err = _build.library().quantize_pack_launch(
+            x.data_ptr(), out.data_ptr(), out.numel(), bits, lo, hi,
+            _ref.quant_step(lo, hi, bits), _build.stream_handle(device))
+    _build.check(err, "quantize_pack")
+    return out, True
+
+
+def quantize_pack(
+    depth: torch.Tensor,  # (H, W) float
+    lo: float,
+    hi: float,
+    *,
+    bits: int = 8,
+) -> torch.Tensor:
+    """Quantize depth to ``bits``-wide codes and bit-pack the lane axis
+    into int32 words: ``(H, W * bits / 32) i32``.  W must be a multiple
+    of ``32 // bits``.  A word depends only on its own pixels, so the
+    reference's tile shape, which only pads, changes nothing and is not
+    taken."""
+    _check_plane(depth, 2, bits)
+    if not depth.is_cuda:
+        return quantize_pack_plain(depth, lo, hi, bits=bits)
+    out, launched = _quantize_launch(depth, lo, hi, bits)
+    launches["quantize_pack"] += launched
+    return out
+
+
+def quantize_pack_batched(
+    depths: torch.Tensor,  # (B, H, W) float
+    lo: float,
+    hi: float,
+    *,
+    bits: int = 8,
+    path: str = "grid",
+) -> torch.Tensor:
+    """B clients' planes quantized and packed together, ``(B, H, W * bits
+    / 32) i32``: ``path="grid"`` is one launch (K6b), ``path="vmap"``
+    runs ``quantize_pack`` per client.  Each row equals the unbatched
+    call on that client."""
+    if path not in ("grid", "vmap"):
+        raise ValueError(f"unknown path {path!r}")
+    _check_plane(depths, 3, bits)
+    if path == "vmap":
+        return torch.stack([quantize_pack(d, lo, hi, bits=bits) for d in depths])
+    if not depths.is_cuda:
+        return quantize_pack_plain(depths, lo, hi, bits=bits)
+    out, launched = _quantize_launch(depths, lo, hi, bits)
+    launches["quantize_pack_batched"] += launched
+    return out
+
+
+def unpack_dequantize(
+    words: torch.Tensor,  # (H, W * bits / 32) i32
+    lo: float,
+    hi: float,
+    *,
+    bits: int = 8,
+) -> torch.Tensor:
+    """Inverse of :func:`quantize_pack`: ``(H, wpk * 32 / bits) f32`` with
+    per-pixel error <= ``ref.quant_step(lo, hi, bits) / 2`` inside
+    [lo, hi]."""
+    ratio = _ref._check_bits(bits)
+    _check_words(words, 2, "words")
+    if not words.is_cuda:
+        return unpack_dequantize_plain(words, lo, hi, bits=bits)
+    device = words.device
+    if words.numel() * ratio >= 2**31:
+        raise ValueError("the kernel indexes the plane with 32-bit ints")
+    out = torch.empty((words.shape[0], words.shape[1] * ratio), dtype=torch.float32,
+                      device=device)
+    if words.numel() == 0:
+        return out
+    w = words.contiguous()
+    with torch.cuda.device(device):
+        err = _build.library().unpack_dequantize_launch(
+            w.data_ptr(), out.data_ptr(), w.numel(), bits, lo,
+            _ref.quant_step(lo, hi, bits), _build.stream_handle(device))
+    _build.check(err, "unpack_dequantize")
+    launches["unpack_dequantize"] += 1
     return out

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the payload codec's temporal-delta half.
+"""Plain PyTorch versions and oracles of the uplink's payload codec.
 
 The wire format the CUDA kernels (``codec.kernels``) accelerate, ported
 from the JAX package's ``codec/ref.py``:
@@ -11,24 +11,30 @@ from the JAX package's ``codec/ref.py``:
   (``.view(torch.int32)``, never float arithmetic): integer XOR is
   exactly invertible, so a changed tile reconstructs bit for bit, and at
   ``threshold == 0`` the roundtrip is lossless to the bit.
-* **Sequenced streams** of keyframes and deltas with loss-driven resync
-  (:class:`DeltaStreamEncoder`, :class:`DeltaStreamDecoder`), and the
-  exact wire-size and change-density accounting.
+* **Uniform depth quantization + bit-packing.**  Depth values in
+  [lo, hi] quantize to ``bits``-wide codes, round half to even of a true
+  float32 division by the step (the error is at most half a step, see
+  :func:`quant_step`), and ``32 // bits`` adjacent codes pack into one
+  int32 word along the lane axis, least significant first.
+* **The composed quantized-delta format** (:func:`encode_frame`,
+  :func:`decode_frame`) that ``codec.model.CodecModel`` prices.
+* **The entropy stage's host half**: per-tile significant-bit-width
+  coding of residual words (numpy, as in the reference).
+* The exact wire-size accounting.
 
-``delta_encode`` and ``delta_decode`` here are shape-strict (dimensions
-must divide the block), as in the reference; padding lives in the kernel
-wrappers.  The stream machines and :func:`change_density` go through
-those wrappers, which launch the kernels for CUDA tensors and come back
-to these functions for CPU tensors.  The quantizer and the entropy coder
-are not ported yet.
+Everything here is shape-strict (dimensions must divide the block), as
+in the reference, and runs on the tensors' own device with plain torch
+operations.  The kernel wrappers (``codec.kernels``) pad and crop; the
+stream machines and :func:`~repro_torch.codec.wire.change_density`,
+which run on the kernels, are in ``codec.wire``.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Tuple
 
+import numpy as np
 import torch
 
 DEFAULT_BLOCK_H = 8
@@ -106,141 +112,239 @@ def delta_decode(
 
 
 # ---------------------------------------------------------------------------
-# sequenced delta streams: keyframe loss and resync
+# uniform quantization + bit-packing
 # ---------------------------------------------------------------------------
 
 
-@dataclasses.dataclass(frozen=True)
-class StreamPacket:
-    """One wire packet of a sequenced delta stream.
+def quantize_codes(
+    depth: torch.Tensor,  # (..., W) float
+    lo: float,
+    hi: float,
+    bits: int,
+) -> torch.Tensor:
+    """The quantizer's codes, int32 in [0, 2^bits - 1]: ``clip(x, lo,
+    hi)``, then ``round((x - lo) / step)`` half to even with a true
+    float32 division, then the clip to the code range.  A NaN pixel gets
+    code 0 (as the reference's saturating cast gives it); +-inf go to
+    the ends of the range."""
+    step = quant_step(lo, hi, bits)
+    x = torch.clamp(depth.to(torch.float32), lo, hi)
+    x = torch.nan_to_num(x, nan=lo)
+    # the step as a tensor on x's device: PyTorch's CUDA division by a
+    # CPU scalar (a Python float) multiplies by its reciprocal, which
+    # moves half-step ties
+    step_t = torch.tensor(step, dtype=torch.float32, device=x.device)
+    codes = torch.round((x - lo) / step_t).to(torch.int32)
+    return torch.clamp(codes, 0, (1 << bits) - 1)
 
-    ``kind`` is "key" (self-contained) or "delta" (XOR residual against
-    the reconstruction of packet ``ref_seq``); a decoder holding any
-    other reference must refuse the packet rather than decode garbage.
+
+def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Pack ``32 // bits`` adjacent codes of the last axis into one int32
+    word, least significant first, with bitwise OR (a sum would promote
+    to int64; at bits 16 the top code sets the sign bit)."""
+    ratio = 32 // bits
+    grouped = codes.to(torch.int32).reshape(*codes.shape[:-1], codes.shape[-1] // ratio, ratio)
+    words = torch.zeros(grouped.shape[:-1], dtype=torch.int32, device=codes.device)
+    for k in range(ratio):
+        words |= grouped[..., k] << (k * bits)
+    return words
+
+
+def quantize_pack(
+    depth: torch.Tensor,  # (H, W) f32
+    lo: float,
+    hi: float,
+    *,
+    bits: int = 8,
+    block_h: int = DEFAULT_BLOCK_H,
+    block_w: int = DEFAULT_BLOCK_W,
+) -> torch.Tensor:
+    """Quantize to ``bits``-wide codes and pack the lane axis:
+    returns ``(H, W * bits / 32) i32`` words."""
+    _check_bits(bits)
+    h, w = depth.shape
+    _check_blocks(h, w, block_h, block_w)
+    return pack_codes(quantize_codes(depth, lo, hi, bits), bits)
+
+
+def unpack_dequantize(
+    words: torch.Tensor,  # (H, W * bits / 32) i32
+    lo: float,
+    hi: float,
+    *,
+    bits: int = 8,
+) -> torch.Tensor:
+    """Inverse of :func:`quantize_pack`: ``(H, W) f32`` reconstruction
+    with per-pixel error <= :func:`quant_step`/2 inside [lo, hi].  The
+    value is ``lo + code * step`` as two rounded float32 operations (no
+    fused multiply-add), as the reference computes it."""
+    ratio = _check_bits(bits)
+    step = quant_step(lo, hi, bits)
+    lanes = torch.stack([(words >> (k * bits)) & ((1 << bits) - 1) for k in range(ratio)],
+                        dim=-1)
+    codes = lanes.reshape(*words.shape[:-1], words.shape[-1] * ratio)
+    return lo + codes.to(torch.float32) * step
+
+
+# ---------------------------------------------------------------------------
+# the composed quantized-delta wire format
+# ---------------------------------------------------------------------------
+
+
+def encode_frame(
+    frame: torch.Tensor,  # (H, W) f32
+    ref: torch.Tensor,  # (H, W) f32: receiver's *reconstructed* reference
+    lo: float,
+    hi: float,
+    *,
+    bits: int = 8,
+    block_h: int = DEFAULT_BLOCK_H,
+    block_w: int = DEFAULT_BLOCK_W,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The composed delta+quantize wire format the analytic
+    ``CodecModel`` prices: both planes quantize to ``bits``-wide codes,
+    and a tile ships its packed codes iff any code changed, so a delta
+    frame costs exactly ``change_density * bits/32`` of the raw f32
+    bytes.
+
+    Returns ``(words, mask)``: the full packed-code plane (the receiver
+    reads only masked tiles) and the per-tile change mask, from the
+    value-space delta of the dequantized planes at threshold ``step/2``.
     """
-
-    seq: int
-    kind: str
-    ref_seq: int
-    payload: object
-
-
-def _kernels():
-    # codec.kernels imports this module for its plain versions
-    from repro_torch.codec import kernels
-
-    return kernels
+    words = quantize_pack(frame, lo, hi, bits=bits, block_h=block_h, block_w=block_w)
+    recon = unpack_dequantize(words, lo, hi, bits=bits)
+    ref_words = quantize_pack(ref, lo, hi, bits=bits, block_h=block_h, block_w=block_w)
+    ref_recon = unpack_dequantize(ref_words, lo, hi, bits=bits)
+    step = quant_step(lo, hi, bits)
+    _, mask = delta_encode(recon, ref_recon, threshold=step / 2,
+                           block_h=block_h, block_w=block_w)
+    return words, mask
 
 
-class DeltaStreamEncoder:
-    """Packetizes frames as keyframes + XOR deltas with loss-driven
-    resync: after :meth:`report_loss`, a keyframe is forced within
-    ``resync_bound`` packets, so a receiver that lost its reference is
-    never stranded longer than the bound.
+def select_tiles(
+    recon: torch.Tensor,  # (H, W) f32: the decoded plane
+    mask: torch.Tensor,  # (tiles_h, tiles_w) change mask
+    ref: torch.Tensor,  # (H, W): the receiver's reference
+    block_h: int,
+    block_w: int,
+) -> torch.Tensor:
+    """Changed tiles from ``recon``, unchanged ones from ``ref``."""
+    keep = mask.repeat_interleave(block_h, 0).repeat_interleave(block_w, 1)
+    keep = keep[: ref.shape[0], : ref.shape[1]]
+    return torch.where(keep > 0.0, recon, ref.to(torch.float32))
 
-    Frames stay on their device: a CUDA frame is encoded by the kernels
-    K3 and K4.  The encoder keeps its own copy of each reference and a
-    keyframe packet carries another, so neither the caller's frame nor
-    the packet aliases the encoder's state.
+
+def decode_frame(
+    words: torch.Tensor,  # packed codes of the masked tiles (full plane here)
+    mask: torch.Tensor,  # (tiles_h, tiles_w) change mask
+    ref: torch.Tensor,  # (H, W) f32: receiver's reconstructed reference
+    lo: float,
+    hi: float,
+    *,
+    bits: int = 8,
+    block_h: int = DEFAULT_BLOCK_H,
+    block_w: int = DEFAULT_BLOCK_W,
+) -> torch.Tensor:
+    """Inverse of :func:`encode_frame`: changed tiles dequantize their
+    shipped codes (error <= step/2), unchanged tiles keep the reference,
+    whose codes are identical."""
+    recon = unpack_dequantize(words, lo, hi, bits=bits)
+    return select_tiles(recon, mask, ref, block_h, block_w)
+
+
+# ---------------------------------------------------------------------------
+# entropy stage: per-tile significant-bit-width coding of residual words
+# ---------------------------------------------------------------------------
+#
+# Each tile of `tile` words records the significant bit width of its max
+# value (one byte), then packs every word's low `width` bits back to
+# back.  An all-zero tile costs exactly one byte.  A leading flag byte
+# selects raw fallback when width coding cannot win, so
+# ``encoded <= raw + 1`` holds on every input.  This is host code
+# (numpy), copied from the reference; a tensor comes in by
+# ``.cpu().numpy()``.
+
+ENTROPY_TILE = 64  # words per width-coded tile
+_ENTROPY_RAW = 0  # flag byte: raw little-endian words follow
+_ENTROPY_CODED = 1  # flag byte: width-coded tiles follow
+
+
+def _as_uint32(words) -> np.ndarray:
+    if isinstance(words, torch.Tensor):
+        words = words.cpu().numpy()
+    return np.ascontiguousarray(
+        np.asarray(words, dtype=np.int32)
+    ).view(np.uint32).ravel()
+
+
+def entropy_encode_words(words, tile: int = ENTROPY_TILE) -> bytes:
+    """Entropy-code a plane of residual words (any shape, int32).
+
+    Returns ``flag byte + payload``: width-coded tiles when that wins,
+    raw little-endian words otherwise.  Lossless by construction and
+    never more than one byte (the flag) over the raw size.
     """
-
-    def __init__(
-        self,
-        *,
-        keyframe_interval: int = 8,
-        resync_bound: int = 4,
-        threshold: float = 0.0,
-        block_h: int = DEFAULT_BLOCK_H,
-        block_w: int = DEFAULT_BLOCK_W,
-    ):
-        if keyframe_interval < 1:
-            raise ValueError("keyframe_interval must be >= 1")
-        if resync_bound < 1:
-            raise ValueError("resync_bound must be >= 1")
-        self.keyframe_interval = keyframe_interval
-        self.resync_bound = resync_bound
-        self.threshold = threshold
-        self.block_h = block_h
-        self.block_w = block_w
-        self._seq = 0
-        self._ref: Optional[torch.Tensor] = None
-        self._since_key = 0
-        # deltas still allowed before a loss report forces a keyframe
-        self._deltas_left: Optional[int] = None
-        self.forced_keyframes = 0
-
-    def report_loss(self, lost_seq: int) -> None:
-        """The transport noticed packet ``lost_seq`` never arrived: the
-        receiver's reference chain is broken from there on, so at most
-        ``resync_bound - 1`` more deltas may ship before a keyframe."""
-        budget = self.resync_bound - 1
-        if self._deltas_left is None or budget < self._deltas_left:
-            self._deltas_left = budget
-
-    def encode(self, frame: torch.Tensor) -> StreamPacket:
-        seq = self._seq
-        self._seq += 1
-        force = self._deltas_left is not None and self._deltas_left <= 0
-        scheduled = (
-            self._ref is None or self._since_key >= self.keyframe_interval - 1
-        )
-        if force or scheduled:
-            if force and not scheduled:
-                self.forced_keyframes += 1
-            self._since_key = 0
-            self._deltas_left = None
-            self._ref = torch.as_tensor(frame).to(torch.float32, copy=True)
-            return StreamPacket(seq, "key", seq, self._ref.clone())
-        h, w = frame.shape
-        _check_blocks(h, w, self.block_h, self.block_w)
-        kernels = _kernels()
-        delta_bits, _ = kernels.delta_encode(
-            frame,
-            self._ref,
-            threshold=self.threshold,
-            block_h=self.block_h,
-            block_w=self.block_w,
-        )
-        # the encoder tracks the RECEIVER's reconstruction (unchanged
-        # tiles keep the old reference), not the source frame: the
-        # closed-loop discipline that stops drift from accumulating
-        self._ref = kernels.delta_decode(delta_bits, self._ref)
-        self._since_key += 1
-        if self._deltas_left is not None:
-            self._deltas_left -= 1
-        return StreamPacket(seq, "delta", seq - 1, delta_bits)
+    if tile < 1:
+        raise ValueError("tile must be >= 1")
+    flat = _as_uint32(words)
+    raw = flat.astype("<u4").tobytes()
+    parts = [bytes([_ENTROPY_CODED])]
+    coded_len = 1
+    for s in range(0, len(flat), tile):
+        chunk = flat[s : s + tile]
+        width = int(chunk.max()).bit_length() if len(chunk) else 0
+        parts.append(bytes([width]))
+        coded_len += 1
+        if width:
+            acc = 0
+            shift = 0
+            for v in chunk.tolist():
+                acc |= v << shift
+                shift += width
+            nb = (shift + 7) // 8
+            parts.append(acc.to_bytes(nb, "little"))
+            coded_len += nb
+        if coded_len > len(raw):  # width coding already lost: bail early
+            break
+    if coded_len <= len(raw):
+        return b"".join(parts)
+    return bytes([_ENTROPY_RAW]) + raw
 
 
-class DeltaStreamDecoder:
-    """Receiver of a :class:`DeltaStreamEncoder` stream.
+def entropy_decode_words(
+    data: bytes, n: int, tile: int = ENTROPY_TILE
+) -> np.ndarray:
+    """Inverse of :func:`entropy_encode_words`: the ``n`` original
+    residual words, bit-exact, as a flat int32 array."""
+    if not data:
+        raise ValueError("empty entropy stream")
+    flag = data[0]
+    body = data[1:]
+    if flag == _ENTROPY_RAW:
+        return np.frombuffer(body, dtype="<u4", count=n).view(np.int32).copy()
+    if flag != _ENTROPY_CODED:
+        raise ValueError(f"unknown entropy stream flag {flag}")
+    out = np.zeros(n, dtype=np.uint32)
+    pos = 0
+    for s in range(0, n, tile):
+        count = min(tile, n - s)
+        width = body[pos]
+        pos += 1
+        if not width:
+            continue
+        nb = (count * width + 7) // 8
+        acc = int.from_bytes(body[pos : pos + nb], "little")
+        pos += nb
+        lane_mask = (1 << width) - 1
+        vals = [(acc >> (k * width)) & lane_mask for k in range(count)]
+        out[s : s + count] = np.asarray(vals, dtype=np.uint32)
+    return out.view(np.int32)
 
-    ``decode`` returns the reconstructed frame, or None (a NACK) when a
-    delta references a reconstruction this decoder does not hold: a
-    stale or missing reference must never be decoded against.  It
-    decodes on the payload's device (K4 for CUDA tensors).  It keeps its
-    own copy of each reference and returns another, so changing a
-    decoded frame in place cannot corrupt the base of the next delta.
-    """
 
-    def __init__(self) -> None:
-        self._ref: Optional[torch.Tensor] = None
-        self._ref_seq = -1
-        self.decoded = 0
-        self.nacks = 0
-
-    def decode(self, packet: StreamPacket) -> Optional[torch.Tensor]:
-        if packet.kind == "key":
-            self._ref = torch.as_tensor(packet.payload).to(torch.float32, copy=True)
-            self._ref_seq = packet.seq
-            self.decoded += 1
-            return self._ref.clone()
-        if self._ref is None or packet.ref_seq != self._ref_seq:
-            self.nacks += 1
-            return None
-        self._ref = _kernels().delta_decode(packet.payload, self._ref)
-        self._ref_seq = packet.seq
-        self.decoded += 1
-        return self._ref.clone()
+def entropy_encoded_nbytes(words, tile: int = ENTROPY_TILE) -> int:
+    """Exact wire size of one entropy-coded residual plane (flag byte
+    included), what ``CodecModel.entropy_ratio`` is calibrated from."""
+    return len(entropy_encode_words(words, tile))
 
 
 # ---------------------------------------------------------------------------
@@ -263,23 +367,3 @@ def encoded_nbytes_exact(
     tile_bits = block_h * block_w * bits
     mask_bits = int(mask.numel())
     return header_nbytes + math.ceil((changed * tile_bits + mask_bits) / 8)
-
-
-def change_density(
-    frames: torch.Tensor,  # (T, H, W) consecutive depth frames
-    *,
-    threshold: float = 0.0,
-    block_h: int = DEFAULT_BLOCK_H,
-    block_w: int = DEFAULT_BLOCK_W,
-) -> torch.Tensor:
-    """Per-transition fraction of changed tiles, shape (T-1,): the
-    measured signal behind the codec model's change density.  The T-1
-    transitions are encoded together (K3b for CUDA frames); the plane is
-    padded to whole tiles, as in the reference."""
-    if frames.shape[0] < 2:
-        raise ValueError("change_density needs at least two frames")
-    _, mask = _kernels().delta_encode_batched(
-        frames[1:], frames[:-1], threshold=threshold, block_h=block_h,
-        block_w=block_w,
-    )
-    return mask.mean(dim=(1, 2))

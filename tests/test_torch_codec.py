@@ -19,6 +19,7 @@ from repro.codec import ref as jcr
 from repro_torch import codec as tcodec
 from repro_torch.codec import kernels as tck
 from repro_torch.codec import ref as tcr
+from repro_torch.codec import wire as twire
 
 
 def _bits(a) -> np.ndarray:
@@ -111,7 +112,7 @@ def test_change_density_and_wire_size_match_reference(threshold):
     frames = rng.normal(0.5, 0.002, (5, 20, 200)).astype(np.float32)  # unaligned
     frames[2, :8, :128] += 0.05
     ref_density = np.asarray(jcr.change_density(jnp.asarray(frames), threshold=threshold))
-    port_density = tcr.change_density(torch.from_numpy(frames), threshold=threshold)
+    port_density = tcodec.change_density(torch.from_numpy(frames), threshold=threshold)
     assert port_density.dtype == torch.float32
     assert np.array_equal(port_density.numpy(), ref_density)
     _, jm = jck.delta_encode(jnp.asarray(frames[1]), jnp.asarray(frames[0]),
@@ -134,7 +135,8 @@ def test_constants_and_helpers_match_reference():
             tcr._check_bits(bad)
     with pytest.raises(ValueError):
         tcr._check_blocks(20, 128, 8, 128)
-    assert tcodec.DeltaStreamEncoder is tcr.DeltaStreamEncoder
+    assert tcodec.DeltaStreamEncoder is twire.DeltaStreamEncoder
+    assert not hasattr(tcr, "DeltaStreamEncoder")  # ref.py holds only plain versions
 
 
 # ---------------------------------------------------------------------------
@@ -161,7 +163,7 @@ def _run_stream(pkg, frames, enc_kwargs, lost=()):
     dec = pkg.DeltaStreamDecoder()
     log = []
     for f in frames:
-        pkt = enc.encode(torch.from_numpy(f) if pkg is tcr else jnp.asarray(f))
+        pkt = enc.encode(torch.from_numpy(f) if pkg is tcodec else jnp.asarray(f))
         if pkt.seq in lost:
             enc.report_loss(pkt.seq)
             log.append((pkt.seq, pkt.kind, pkt.ref_seq, np.asarray(pkt.payload), None))
@@ -182,7 +184,7 @@ def test_stream_machines_match_reference(schedule):
     _name, kwargs, lost = schedule
     frames = _sequence(n=12 if not lost else 20)
     j_enc, j_dec, j_log = _run_stream(jcr, frames, kwargs, lost)
-    t_enc, t_dec, t_log = _run_stream(tcr, frames, kwargs, lost)
+    t_enc, t_dec, t_log = _run_stream(tcodec, frames, kwargs, lost)
     assert [e[:3] for e in t_log] == [e[:3] for e in j_log]  # seq, kind, ref_seq
     for (_, kind, _, t_pay, t_out), (_, _, _, j_pay, j_out) in zip(t_log, j_log):
         assert t_pay.dtype == j_pay.dtype
@@ -199,10 +201,10 @@ def test_stream_machines_match_reference(schedule):
 
 def test_stream_encoder_validates_config_and_shape():
     with pytest.raises(ValueError):
-        tcr.DeltaStreamEncoder(keyframe_interval=0)
+        tcodec.DeltaStreamEncoder(keyframe_interval=0)
     with pytest.raises(ValueError):
-        tcr.DeltaStreamEncoder(resync_bound=0)
-    enc = tcr.DeltaStreamEncoder()
+        tcodec.DeltaStreamEncoder(resync_bound=0)
+    enc = tcodec.DeltaStreamEncoder()
     enc.encode(torch.zeros((20, 200)))  # a keyframe ships any shape
     with pytest.raises(ValueError, match="not divisible"):
         enc.encode(torch.zeros((20, 200)))  # a delta needs whole tiles
@@ -212,7 +214,7 @@ def test_stream_keyframes_are_copies():
     """The port's tensors are mutable: changing the caller's frame after
     encoding it changes neither the encoder's nor the decoder's state."""
     frame = torch.from_numpy(_sequence(n=1)[0].copy())
-    enc, dec = tcr.DeltaStreamEncoder(), tcr.DeltaStreamDecoder()
+    enc, dec = tcodec.DeltaStreamEncoder(), tcodec.DeltaStreamDecoder()
     pkt = enc.encode(frame)
     out = dec.decode(pkt)
     before = out.clone()
@@ -225,8 +227,8 @@ def test_stream_outputs_are_copies():
     corrupts neither machine: at threshold 0 every later frame still
     decodes bit for bit."""
     frames = _sequence(n=10)
-    enc = tcr.DeltaStreamEncoder(keyframe_interval=4)
-    dec = tcr.DeltaStreamDecoder()
+    enc = tcodec.DeltaStreamEncoder(keyframe_interval=4)
+    dec = tcodec.DeltaStreamDecoder()
     for f in frames:
         pkt = enc.encode(torch.from_numpy(f))
         out = dec.decode(pkt)

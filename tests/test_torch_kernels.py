@@ -10,8 +10,13 @@ The tests marked ``gpu`` need a CUDA card and nvcc; elsewhere they skip
 with that reason.  Tolerances: K1 and K1b as ``tests/test_kernels.py``
 holds the Pallas kernel (rtol 2e-5 plus one silhouette-pixel flip,
 CLAMP_T / |B|, on the normalized score); K2 and K2b at rtol = atol =
-1e-6, as ``tests/test_pso_kernel.py``; the delta codec (K3, K3b, K4) bit
-for bit.  A batched kernel's rows equal its unbatched kernel bit for bit.
+1e-6, as ``tests/test_pso_kernel.py``; the codec (K3, K3b, K4, K5, K5b,
+K6, K6b, K7) bit for bit.  A batched kernel's rows equal its unbatched
+kernel bit for bit.  The quantizer's plain version divides by a float32
+tensor on the input's device, so on the card it rounds as on the CPU;
+the tests hold each codec kernel against the plain version run on the
+CPU copy of its input, and the plain version on the card against that
+too.
 """
 
 import numpy as np
@@ -20,6 +25,7 @@ import torch
 
 from repro_torch.codec import kernels as ck
 from repro_torch.codec import ref as cref
+from repro_torch.codec import wire
 from repro_torch.core import handmodel as hm
 from repro_torch.core.camera import Camera, crop_camera
 from repro_torch.core.objective import CLAMP_T, render_depth
@@ -137,6 +143,50 @@ def test_batched_and_codec_wrappers_take_the_plain_versions_on_cpu():
     assert _counts() == before
 
 
+def _quant_planes(h, w, lo, hi, bits, device, b=4, seed=0):
+    """(b, h, w) float32 planes: uniform over 10% beyond [lo, hi] on both
+    sides, exact half-step ties ``lo + (k + 1/2) * step`` in every other
+    row, and in tile (0, 0) NaN, +-inf, -0.0, the range's ends and points
+    just outside them."""
+    rng = np.random.default_rng(seed)
+    span = hi - lo
+    x = rng.uniform(lo - 0.1 * span, hi + 0.1 * span, (b, h, w)).astype(np.float32)
+    step = np.float32(cref.quant_step(lo, hi, bits))
+    k = rng.integers(0, (1 << bits) - 1, (b, h // 2, w))
+    x[:, ::2] = np.float32(lo) + (k + 0.5).astype(np.float32) * step
+    x[:, 1, :10] = [np.nan, np.inf, -np.inf, -0.0, 0.0, lo, hi, lo - 1.0, hi + 1.0, np.nan]
+    return torch.from_numpy(x).to(device)
+
+
+def _residual_planes(h, w, device, b=4, seed=0):
+    """K3's threshold-0 residuals of b (frame, ref) pairs, with a tile
+    whose max word has the sign bit set and an all-zero tile."""
+    frames, refs = _codec_pair(h, w, device, b=b, seed=seed)
+    deltas, _ = ck.delta_encode_batched(frames, refs)
+    deltas[:, :8, -128:] = 0
+    deltas[:, 8, -1] = -1
+    return deltas
+
+
+def test_quant_wrappers_take_the_plain_versions_on_cpu():
+    """On the CPU the K5/K5b, K6/K6b and K7 wrappers run their plain
+    versions, exactly, and count no launch."""
+    before = _counts()
+    x = _quant_planes(16, 256, 0.1, 10.0, 8, "cpu", b=2)
+    words = ck.quantize_pack_batched(x, 0.1, 10.0, bits=8)
+    assert torch.equal(words, ck.quantize_pack_plain(x, 0.1, 10.0, bits=8))
+    assert torch.equal(ck.quantize_pack(x[1], 0.1, 10.0, bits=8), words[1])
+    values = ck.unpack_dequantize(words[0], 0.1, 10.0, bits=8)
+    assert torch.equal(values.view(torch.int32), ck.unpack_dequantize_plain(
+        words[0], 0.1, 10.0, bits=8).view(torch.int32))
+    deltas = _residual_planes(16, 256, "cpu", b=2)
+    widths = ck.significant_bit_widths_batched(deltas)
+    assert torch.equal(widths, ck.significant_bit_widths_plain(deltas))
+    assert torch.equal(ck.significant_bit_widths(deltas[0]), widths[0])
+    assert widths[0, 0, 1] == 0 and widths[0, 1, 1] == 32
+    assert _counts() == before
+
+
 def test_batched_wrappers_reject_bad_path_and_shapes():
     upd = _batched_update_inputs(2, 5, 27, "cpu", per_swarm_bounds=False)
     with pytest.raises(ValueError, match="unknown path"):
@@ -156,7 +206,7 @@ def test_batched_wrappers_reject_bad_path_and_shapes():
 
 def test_build_targets_hopper_without_fast_math():
     assert {p.name for p in _build.sources()} >= {
-        "render_score.cu", "pso_update.cu", "delta_codec.cu"}
+        "render_score.cu", "pso_update.cu", "delta_codec.cu", "quant_codec.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
     assert "-O3" in _build.COMPILE_FLAGS
     assert not any("fast_math" in f for f in _build.ARCH_FLAGS + _build.COMPILE_FLAGS)
@@ -254,20 +304,81 @@ def test_delta_codec_kernels_match_plain(cuda, h, w, threshold):
         want = ck.delta_decode_plain(di.cpu(), refs[i].cpu())
         assert torch.equal(out.cpu().view(torch.int32), want.view(torch.int32))
     assert m[0, 0, 0] == 0 and m[0, 1, 0] == 0 and m[0, -1, -1] == 1
-    assert ck.launches == {"delta_encode": before["delta_encode"] + 4,
-                           "delta_encode_batched": before["delta_encode_batched"] + 1,
-                           "delta_decode": before["delta_decode"] + 4}
+    delta_keys = ("delta_encode", "delta_encode_batched", "delta_decode")
+    assert {k: ck.launches[k] for k in delta_keys} == {
+        "delta_encode": before["delta_encode"] + 4,
+        "delta_encode_batched": before["delta_encode_batched"] + 1,
+        "delta_decode": before["delta_decode"] + 4}
 
 
 @pytest.mark.gpu
 def test_delta_stream_on_the_card_is_lossless_at_threshold_zero(cuda):
     rng = np.random.default_rng(3)
     base = rng.normal(0.5, 0.1, (32, 128)).astype(np.float32)
-    enc = cref.DeltaStreamEncoder(keyframe_interval=4)
-    dec = cref.DeltaStreamDecoder()
+    enc = wire.DeltaStreamEncoder(keyframe_interval=4)
+    dec = wire.DeltaStreamDecoder()
     for t in range(9):
         f = base.copy()
         f[(t * 3) % 32: (t * 3) % 32 + 4, :16] += 0.05
         frame = torch.from_numpy(f).to(cuda)
         out = dec.decode(enc.encode(frame))
         assert out.is_cuda and torch.equal(out.view(torch.int32), frame.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (0.1, 10.0)])
+@pytest.mark.parametrize("h,w", [(128, 128), (240, 320)])
+def test_quant_kernels_match_plain(cuda, h, w, lo, hi):
+    """K6b (B = 4), K6 and K7 at every packable width, bit for bit
+    against their plain versions on the CPU copy, on planes with half-step
+    ties and a NaN/+-inf/-0.0 tile; K6b's rows equal K6; the plain
+    version on the card equals it on the CPU."""
+    for bits in cref.PACKABLE_BITS:
+        x = _quant_planes(h, w, lo, hi, bits, cuda, seed=bits)
+        before = dict(ck.launches)
+        words = ck.quantize_pack_batched(x, lo, hi, bits=bits)
+        want = ck.quantize_pack_plain(x.cpu(), lo, hi, bits=bits)
+        assert words.shape == (4, h, w * bits // 32) and torch.equal(words.cpu(), want)
+        assert torch.equal(ck.quantize_pack_plain(x, lo, hi, bits=bits).cpu(), want)
+        for i in range(4):
+            assert torch.equal(ck.quantize_pack(x[i], lo, hi, bits=bits), words[i])
+            values = ck.unpack_dequantize(words[i], lo, hi, bits=bits)
+            plain = ck.unpack_dequantize_plain(want[i], lo, hi, bits=bits)
+            assert values.shape == (h, w)
+            assert torch.equal(values.cpu().view(torch.int32), plain.view(torch.int32))
+        assert ck.launches["quantize_pack_batched"] == before["quantize_pack_batched"] + 1
+        assert ck.launches["quantize_pack"] == before["quantize_pack"] + 4
+        assert ck.launches["unpack_dequantize"] == before["unpack_dequantize"] + 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w", [(128, 128), (240, 320)])
+def test_bit_width_kernels_match_plain(cuda, h, w):
+    """K5b (B = 4) and K5 bit for bit against their plain version on the
+    CPU copy, on K3's residuals with a sign-bit tile (width 32) and an
+    all-zero tile (width 0); K5b's rows equal K5."""
+    deltas = _residual_planes(h, w, cuda, seed=h)
+    before = dict(ck.launches)
+    widths = ck.significant_bit_widths_batched(deltas)
+    want = ck.significant_bit_widths_plain(deltas.cpu())
+    assert widths.shape == (4, -(-h // 8), -(-w // 128)) and torch.equal(widths.cpu(), want)
+    for i in range(4):
+        assert torch.equal(ck.significant_bit_widths(deltas[i]), widths[i])
+    assert bool((widths[:, 0, -1] == 0).all()) and bool((widths[:, 1, -1] == 32).all())
+    assert ck.launches["significant_bit_widths_batched"] == (
+        before["significant_bit_widths_batched"] + 1)
+    assert ck.launches["significant_bit_widths"] == before["significant_bit_widths"] + 4
+
+
+@pytest.mark.gpu
+def test_quantized_frames_on_the_card_match_the_cpu(cuda):
+    """encode_frame/decode_frame through K6, K7 and K3 on the card equal
+    the same composition of the plain versions on the CPU."""
+    x = _quant_planes(128, 128, 0.0, 10.0, 8, cuda, b=2, seed=5)
+    for bits in (16, 8):
+        words, mask = wire.encode_frame(x[1], x[0], 0.0, 10.0, bits=bits)
+        cw, cm = wire.encode_frame(x[1].cpu(), x[0].cpu(), 0.0, 10.0, bits=bits)
+        assert torch.equal(words.cpu(), cw) and torch.equal(mask.cpu(), cm)
+        out = wire.decode_frame(words, mask, x[0], 0.0, 10.0, bits=bits)
+        want = wire.decode_frame(cw, cm, x[0].cpu(), 0.0, 10.0, bits=bits)
+        assert torch.equal(out.cpu().view(torch.int32), want.view(torch.int32))
