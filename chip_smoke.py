@@ -7,9 +7,11 @@ Phases (any failure exits non-zero and prints no result line):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build the CUDA kernels from src/repro_torch/csrc with nvcc (sm_90a)
      and print ptxas' registers and spills;
-  3. K1 (render_score) against its plain version on the card: full width,
-     a ragged shape, an all-zero mask (exactly 0) and a repeat
-     (bit-identical);
+  3. K1 (render_score) against its plain version on the card: full width
+     on frame 1's bounding-box mask, a ragged shape, an all-ones, a
+     non-binary and a single-pixel mask, an all-zero mask (exactly 0), a
+     repeat (bit-identical), and a NaN depth at a masked and at an
+     unmasked pixel (every sum NaN, as the plain version);
   4. K2 (pso_update) against its plain version at (64, 27) and (13, 27),
      and the main path's evaluation on the card (forward kinematics + K1)
      against the plain objective on the CPU for the same particles;
@@ -18,10 +20,12 @@ Phases (any failure exits non-zero and prints no result line):
      pose; mean position error < 3 cm; K1 launched 31 times and K2 30
      times per frame; per-frame time by CUDA events and its replay
      through the 30 Hz ``FrameLoop``;
-  6. two frames under torch.profiler: device busy/idle share and kernel
-     time per frame;
-  7. each kernel timed by CUDA events at the main path's shapes, beside
-     its plain version and its bound on the card;
+  6. two frames under torch.profiler: device busy/idle share, kernel
+     time per frame, and K1's one kernel launched 31 times a frame;
+  7. each kernel timed by CUDA events and profiler device time at the
+     main path's shapes, beside its plain version and its bound on the
+     card; K1 also on an all-ones mask, each with its kept-pixel count
+     and a bound counted over the kept pixels;
   8. the uplink: the phase-5 sequence streamed through the port's
      ``DeltaStreamEncoder`` -> ``DeltaStreamDecoder`` on the card at
      threshold 0 (every frame decodes bit-identical) and 0.01 m (every
@@ -35,8 +39,9 @@ Phases (any failure exits non-zero and prints no result line):
   9. the edge server's batched step at full width: 4 clients, each with
      its own decoded frame and 64-particle population, scored by K1b
      (each row equal to K1 on that client), updated by K2b at (4, 64, 27)
-     (each swarm equal to K2), and scored again; the fused launches timed
-     against 4 solo launches (per_client_vs_solo);
+     (each swarm equal to K2), and scored again; then K1b with a NaN in
+     client 2's frame alone (row 2 NaN, every other row equal to K1); the
+     fused launches timed against 4 solo launches (per_client_vs_solo);
  10. the quantized uplink: the clip through ``encode_frame`` ->
      ``decode_frame`` (K6, K7, K3) in a closed loop at 16 and 8 bits over
      (0, 10 m): every pixel within step/2 + 2 ulp(10) of the clipped
@@ -161,6 +166,32 @@ def _normalized_err(torch, got, want, mask):
     return float(err.max()), bool((err <= tol).all())
 
 
+def _kept(torch, depth, mask):
+    """The pixels whose term can be non-zero, which K1 scores: mask != 0
+    or a NaN depth."""
+    return (mask != 0) | torch.isnan(depth)
+
+
+def _k1_masks(torch, depth, mask):
+    """K1's mask cases beside the bounding box: all ones, weights 0.5 and
+    2.0 on some pixels, and the first masked pixel alone."""
+    nonbinary = mask.clone()
+    nonbinary[::3] *= 0.5
+    nonbinary[1::17] *= 2.0
+    single = torch.zeros_like(mask)
+    single[int(torch.nonzero(mask)[0])] = 1.0
+    return {"all-ones": torch.ones_like(mask), "non-binary": nonbinary,
+            "single-pixel": single}
+
+
+def _with_nan(depth, mask, where):
+    """depth with one NaN at the first pixel inside or outside the mask."""
+    depth = depth.clone()
+    pick = mask != 0 if where == "masked" else mask == 0
+    depth[int(pick.nonzero()[0])] = float("nan")
+    return depth
+
+
 def phase_k1(torch, rs, inputs):
     spheres, rays, depth, mask = inputs
     got = rs.render_score_sums(spheres, rays, depth, mask)
@@ -170,11 +201,20 @@ def phase_k1(torch, rs, inputs):
     err, ok = _normalized_err(torch, got, want, mask)
     check(ok, f"K1 full width disagrees with its plain version: max|err| {err:.3g}")
     check(torch.equal(got, again), "K1 repeat is not bit-identical")
-    log(f"[K1] full width N={spheres.shape[0]} S={spheres.shape[1]} P={rays.shape[0]}: "
+    log(f"[K1] full width N={spheres.shape[0]} S={spheres.shape[1]} P={rays.shape[0]}, "
+        f"frame 1's bounding-box mask ({int(_kept(torch, depth, mask).sum())} kept pixels): "
         f"max|err| of E_D {err:.3g} (tol rtol {K1_TOL_RTOL} + CLAMP_T/|B| + 1e-6), "
         f"repeat bit-identical")
 
-    p = rays.shape[0] - 77  # not a multiple of the 1024-pixel tile
+    for label, m in _k1_masks(torch, depth, mask).items():
+        c_err, c_ok = _normalized_err(torch, rs.render_score_sums(spheres, rays, depth, m),
+                                      rs.render_score_sums_plain(spheres, rays, depth, m), m)
+        check(c_ok, f"K1 on the {label} mask disagrees: max|err| {c_err:.3g}")
+        log(f"[K1] full width, {label} mask ({int(_kept(torch, depth, m).sum())} kept "
+            f"pixels): max|err| {c_err:.3g}")
+        err = max(err, c_err)
+
+    p = rays.shape[0] - 77  # not a multiple of the 256-pixel segment
     args = (spheres[:13], rays[:p], depth[:p], mask[:p])
     r_err, r_ok = _normalized_err(torch, rs.render_score_sums(*args),
                                   rs.render_score_sums_plain(*args), args[3])
@@ -184,6 +224,16 @@ def phase_k1(torch, rs, inputs):
     zero = rs.render_score_sums(spheres, rays, depth, torch.zeros_like(mask))
     check(bool((zero == 0).all()), "K1 with an all-zero mask is not exactly 0")
     log("[K1] all-zero mask: exactly 0")
+
+    for where in ("masked", "unmasked"):
+        d_nan = _with_nan(depth, mask, where)
+        k = rs.render_score_sums(spheres, rays, d_nan, mask)
+        plain = rs.render_score_sums_plain(spheres, rays, d_nan, mask)
+        check(bool(torch.isnan(plain).all()) and bool(torch.isnan(k).all()),
+              f"K1 with a NaN depth at one {where} pixel: {int(torch.isnan(k).sum())} of "
+              f"{k.numel()} sums NaN, plain {int(torch.isnan(plain).sum())}")
+        log(f"[K1] one NaN depth at one {where} pixel: all {k.numel()} sums NaN, "
+            f"as the plain version")
     return err
 
 
@@ -304,10 +354,10 @@ def phase_profile(torch, tracker_mod, frames, truth, device):
     count = {"K1": 0, "K2": 0}
     for e in events:
         dur = e.time_range.end - e.time_range.start
-        key = ("K1" if "render_score_" in e.name else
+        key = ("K1" if "render_score_kernel" in e.name else
                "K2" if "pso_update_kernel" in e.name else "other")
         by[key] += dur
-        if key in count and ("partial" in e.name or key == "K2"):
+        if key in count:
             count[key] += 1
     out = {
         "frame_ms": wall_us / 2 / 1e3,
@@ -319,13 +369,19 @@ def phase_profile(torch, tracker_mod, frames, truth, device):
         "other_ms": by["other"] / 2 / 1e3,
         "k1_device_ms_per_launch": by["K1"] / max(count["K1"], 1) / 1e3,
         "k2_device_ms_per_launch": by["K2"] / max(count["K2"], 1) / 1e3,
+        "k1_kernels_per_frame": count["K1"] / 2,
     }
     log(f"[profile] per frame: wall {out['frame_ms']:.3f} ms, device busy "
         f"{out['busy_ms']:.3f} ms (idle {out['idle_share'] * 100:.1f}%), "
         f"{out['activities_per_frame']:.0f} device activities; K1 {out['k1_ms']:.3f} ms, "
         f"K2 {out['k2_ms']:.3f} ms, other kernels/copies {out['other_ms']:.3f} ms")
     log(f"[profile] device time per launch: K1 {out['k1_device_ms_per_launch'] * 1e3:.2f} us "
-        f"(both of its kernels), K2 {out['k2_device_ms_per_launch'] * 1e3:.2f} us")
+        f"(on the frames' own masks), K2 {out['k2_device_ms_per_launch'] * 1e3:.2f} us; "
+        f"{out['k1_kernels_per_frame']:.0f} render_score kernels a frame")
+    per_frame = 1 + configs()[1].pso.num_generations
+    check(out["k1_kernels_per_frame"] == per_frame,
+          f"{out['k1_kernels_per_frame']} render_score kernels a frame, expected {per_frame}: "
+          f"one kernel per evaluation")
     return out
 
 
@@ -357,24 +413,58 @@ def _disc_hits(torch, spheres, rays):
     return hits
 
 
-def phase_timing(torch, rs, pu, inputs, device, k1_err, k2_err, launches, prof):
-    spheres, rays, depth, mask = inputs
+def _k1_work(torch, spheres, rays, depth, mask):
+    """K1's work on one client's inputs: (ops, bytes) counted over the
+    pixels it keeps, the same over all P (the work of a kernel that tests
+    every pixel), and the kept-pixel count.  fp32 operations: 10 per (particle, pixel,
+    sphere) test (the K=3 dot, the discriminant, its sign test, the
+    running min), 4 more per test with disc >= 0 (sqrt, subtract, divide,
+    t > 1e-4), 5 per (particle, pixel) for the clamped masked sum.
+    Bytes: the spheres, mask and depth over all P, the rays of the kept
+    pixels, the sums (each read or written once)."""
     n, s = spheres.shape[:2]
     p = rays.shape[0]
-    k1_ms = _time_ms(torch, lambda: rs.render_score_sums(spheres, rays, depth, mask), 200)
-    k1_plain = _time_ms(torch, lambda: rs.render_score_sums_plain(spheres, rays, depth, mask), 20)
-    hits = _disc_hits(torch, spheres, rays)
-    # fp32 operations: 10 per (particle, pixel, sphere) test (the K=3 dot,
-    # the discriminant, its sign test, the running min), 4 more per test
-    # with disc >= 0 (sqrt, subtract, divide, t > 1e-4), 5 per (particle,
-    # pixel) for the clamped masked sum.
-    k1_ops = 10 * n * p * s + 4 * hits + 5 * n * p
-    k1_bytes = 4 * (n * s * 4 + p * 3 + p + p + n)
-    k1_bound = 1e3 * max(k1_ops / PEAK_FP32_FLOPS, k1_bytes / PEAK_BYTES_PER_S)
-    log(f"[time] K1 at N={n} S={s} P={p}: kernel {k1_ms * 1e3:.2f} us, plain "
-        f"{k1_plain * 1e3:.2f} us, bound {k1_bound * 1e3:.2f} us "
-        f"({k1_ops:.4g} fp32 ops of which {hits} hit tests / 67 TFLOP/s; "
-        f"{k1_bytes} B / 3.35 TB/s); no single PyTorch call computes it")
+    keep = _kept(torch, depth, mask)
+    kept = int(keep.sum())
+    hits_kept = _disc_hits(torch, spheres, rays[keep])
+    hits_all = hits_kept + _disc_hits(torch, spheres, rays[~keep])
+    kept_work = (10 * n * kept * s + 4 * hits_kept + 5 * n * kept,
+                 4 * (n * s * 4 + 2 * p + 3 * kept + n))
+    full_work = (10 * n * p * s + 4 * hits_all + 5 * n * p, 4 * (n * s * 4 + 5 * p + n))
+    return kept_work, full_work, kept
+
+
+def _time_k1(torch, rs, label, args, reps=200):
+    """One K1 case timed by CUDA events and profiler device time, beside
+    its plain version and its bounds; returns its kernels-line fields."""
+    spheres, rays, depth, mask = args
+    fn = lambda: rs.render_score_sums(*args)
+    ms = _time_ms(torch, fn, reps)
+    dev = _device_ms(torch, fn, 20, ["render_score_kernel"])
+    plain_ms = _time_ms(torch, lambda: rs.render_score_sums_plain(*args), 20)
+    (ops, nbytes), (full_ops, full_bytes), kept = _k1_work(torch, *args)
+    bound, by = _bound(ops, nbytes)
+    full_bound, full_by = _bound(full_ops, full_bytes)
+    log(f"[time] K1 at N={spheres.shape[0]} S={spheres.shape[1]} P={rays.shape[0]}, {label} "
+        f"({kept} kept pixels): events {_us(ms)}, device {_us(dev)}, plain {_us(plain_ms)}; "
+        f"bound {bound * 1e3:.4f} us over the kept pixels ({by}: {ops:.4g} fp32 ops / "
+        f"67 TFLOP/s, {nbytes} B / 3.35 TB/s); the full-P bound (every pixel tested): "
+        f"{full_bound * 1e3:.4f} us ({full_by}, {full_ops:.4g} ops); no single PyTorch "
+        f"call computes it")
+    return dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None)
+
+
+def phase_timing(torch, rs, pu, inputs, device, k1_err, k2_err, launches, prof):
+    from repro_torch.kernels import _build
+
+    spheres, rays, depth, mask = inputs
+    n, s = spheres.shape[:2]
+    log(f"[time] K1's clusters of 8 blocks the card holds at once (N={n}, S={s}): "
+        f"{_build.library().render_score_max_active_clusters(n, s)}; K1 launches {n}, "
+        f"K1b at B={CLIENTS} {CLIENTS * n}")
+    k1 = _time_k1(torch, rs, "frame 1's bounding-box mask", inputs)
+    _time_k1(torch, rs, "all-ones mask", (spheres, rays, depth, torch.ones_like(mask)))
 
     consts = dict(inertia=0.7298, cognitive=1.49618, social=1.49618, velocity_clip=0.5)
     gen = torch.Generator(device=device).manual_seed(3)
@@ -397,11 +487,7 @@ def phase_timing(torch, rs, pu, inputs, device, k1_err, k2_err, launches, prof):
         {"name": "render_score_sums", "route": "cuda",
          "source": "src/repro_torch/csrc/render_score.cu",
          "replaces": "src/repro/kernels/render_score.py:138",
-         "launches": launches["k1"], "max_abs_err": k1_err, "ms": k1_ms,
-         "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by":
-         "operations" if k1_ops / PEAK_FP32_FLOPS >= k1_bytes / PEAK_BYTES_PER_S else "bytes",
-         "library_ms": None,
-         "device_ms": prof["k1_device_ms_per_launch"] if prof else None},
+         "launches": launches["k1"], "max_abs_err": k1_err, **k1},
         {"name": "pso_update", "route": "cuda",
          "source": "src/repro_torch/csrc/pso_update.cu",
          "replaces": "src/repro/kernels/pso_update.py:72",
@@ -911,6 +997,23 @@ def phase_batched_step(torch, hm, tracker_mod, ops_mod, rs, pu, ck, decoded, tru
                                **UPDATE_CONSTS)
         check(_bit_equal(torch, x_new[b], sx) and _bit_equal(torch, v_new[b], sv),
               f"K2b swarm {b} differs from K2 on that swarm")
+    nan_depth = depth.clone()
+    nan_depth[2] = _with_nan(depth[2], masks[2], "masked")
+    nan_sums = rs.render_score_sums_batched(spheres, rays, nan_depth, masks)
+    nan_plain = rs.render_score_sums_batched_plain(spheres, rays, nan_depth, masks)
+    for b in range(CLIENTS):
+        want_nan = b == 2
+        check(bool(torch.isnan(nan_sums[b]).all()) == want_nan
+              and bool(torch.isnan(nan_sums[b]).any()) == want_nan
+              and bool(torch.isnan(nan_plain[b]).all()) == want_nan,
+              f"K1b with a NaN in client 2's frame: row {b} has "
+              f"{int(torch.isnan(nan_sums[b]).sum())} NaN sums (plain "
+              f"{int(torch.isnan(nan_plain[b]).sum())}), expected {n if want_nan else 0}")
+        check(_bit_equal(torch, nan_sums[b],
+                         rs.render_score_sums(spheres[b], rays[b], nan_depth[b], masks[b])),
+              f"K1b with a NaN in client 2's frame: row {b} differs from K1 on that client")
+    log(f"[batched] K1b with a NaN depth in client 2's frame: row 2 all NaN as the plain "
+        f"version, rows 0, 1, 3 finite; every row bit-identical to K1 on that client")
     log(f"[batched] K1b rows bit-identical to K1; max|err| of E_D against plain {k1b_err:.3g} "
         f"(tol rtol {K1_TOL_RTOL} + CLAMP_T/|B| + 1e-6). K2b at {tuple(hs.shape)} "
         f"bit-identical to K2 per swarm; max|err| against plain {k2b_err:.3g} (tol {K2_TOL})")
@@ -931,15 +1034,16 @@ def phase_slice2_timing(torch, rs, pu, ck, frames, step_inputs, device):
                      for b in range(CLIENTS)]
     ms, solo_ms = _time_ms(torch, fused, 200), _time_ms(torch, solo, 200)
     solos_ms = _time_ms(torch, solos, 100)
-    dev = _device_ms(torch, fused, 20, ["render_score_"])
-    dev_solo = _device_ms(torch, solo, 20, ["render_score_"])
-    # K1's count per client: 10 fp32 ops per (particle, pixel, sphere)
-    # test, 4 more per test with disc >= 0, 5 per (particle, pixel)
+    dev = _device_ms(torch, fused, 20, ["render_score_kernel"])
+    dev_solo = _device_ms(torch, solo, 20, ["render_score_kernel"])
+    # K1's work per client, summed: over the kept pixels, and over all P
     n, s, p = spheres.shape[1], spheres.shape[2], rays.shape[1]
-    hits = sum(_disc_hits(torch, spheres[b], rays[b]) for b in range(CLIENTS))
-    ops = CLIENTS * (10 * n * p * s + 5 * n * p) + 4 * hits
-    nbytes = 4 * CLIENTS * (n * s * 4 + p * 3 + p + p + n)
+    work = [_k1_work(torch, spheres[b], rays[b], depth[b], masks[b]) for b in range(CLIENTS)]
+    ops, nbytes = (sum(w[0][i] for w in work) for i in (0, 1))
+    full_ops, full_bytes = (sum(w[1][i] for w in work) for i in (0, 1))
+    kept = [w[2] for w in work]
     bound, by = _bound(ops, nbytes)
+    full_bound, _ = _bound(full_ops, full_bytes)
     plain_ms = _time_ms(torch, lambda: rs.render_score_sums_batched_plain(
         spheres, rays, depth, masks), 10)
     out["k1b"] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
@@ -949,8 +1053,10 @@ def phase_slice2_timing(torch, rs, pu, ck, frames, step_inputs, device):
     log(f"[time] K1b at B={CLIENTS} N={n} S={s} P={p}: fused {_us(ms)} (device {_us(dev)}), "
         f"one solo K1 {_us(solo_ms)} (device {_us(dev_solo)}), {CLIENTS} solo K1 calls "
         f"{_us(solos_ms)}; per_client_vs_solo {ms / (CLIENTS * solo_ms):.3f} (events), "
-        f"{per_client_dev} (device); plain {_us(plain_ms)}; bound {_us(bound)} "
-        f"({ops:.4g} fp32 ops of which {hits} hit tests, {nbytes} B)")
+        f"{per_client_dev} (device); plain {_us(plain_ms)}; kept pixels per client {kept}; "
+        f"bound {bound * 1e3:.4f} us over the kept pixels ({by}: {ops:.4g} fp32 ops, "
+        f"{nbytes} B); the full-P bound (every pixel tested): {full_bound * 1e3:.4f} us "
+        f"({full_ops:.4g} ops)")
 
     args = step_inputs["update"]
     b, n, d = args[0].shape

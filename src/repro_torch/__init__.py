@@ -17,5 +17,4 @@ The package imports ``torch`` and numpy only; the tests hold it against
   entropy coder, the codec cost model and the rate controller.
 * ``data``    — synthetic RGBD sequences.
 * ``sim``     — the 30 Hz frame-drop clock.
-* ``bench``   — measurement scripts for the card (K1's occupancy).
 """

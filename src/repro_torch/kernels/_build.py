@@ -34,8 +34,8 @@ COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "render_score_sums_launch": [_P] * 6 + [_I] * 4 + [_F] * 2 + [_P],
-    "render_score_tile_pixels": [],
+    "render_score_sums_launch": [_P] * 5 + [_I] * 4 + [_F] * 2 + [_P],
+    "render_score_max_active_clusters": [_I] * 2,
     "pso_update_launch": [_P] * 10 + [_I] * 4 + [_F] * 4 + [_P],
     "delta_encode_launch": [_P] * 4 + [_I] * 5 + [_F, _P],
     "delta_decode_launch": [_P] * 3 + [_I, _P],

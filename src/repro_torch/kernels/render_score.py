@@ -9,10 +9,14 @@ rays (P, 3), depth (P,), mask (P,) give sums (N,); with a leading client
 axis, (B, N, S, 4), (B, P, 3), (B, P), (B, P) give (B, N).
 
 The kernel is ``csrc/render_score.cu``, which says what bounds it on an
-H100 (operations) and how its design answers that.  K1 is its B = 1
-launch, so each client's row of K1b equals K1 on that client bit for
-bit.  For a CUDA tensor a wrapper launches it, or raises; for a CPU
-tensor it runs the plain version, ``render_score_sums_plain`` or
+H100 (the launch and the mask scan at the tracker's masks, fp32
+operations on a dense one) and how its design answers that: it scores
+only the pixels whose term can be non-zero (mask != 0, or a NaN depth,
+which makes the sum NaN as in the reference), and closes each sum in
+one launch inside a cluster of 8 blocks.  K1 is its B = 1 launch, so
+each client's row of K1b equals K1 on that client bit for bit.  For a
+CUDA tensor a wrapper launches it, or raises; for a CPU tensor it runs
+the plain version, ``render_score_sums_plain`` or
 ``render_score_sums_batched_plain`` (the oracles in ``kernels/ref.py``).
 ``launches`` counts K1's launches and ``launches_batched`` K1b's.
 """
@@ -34,8 +38,10 @@ from repro_torch.kernels.ref import (
 launches = 0
 launches_batched = 0
 
-# Spheres per particle a block stages in shared memory (16 B each).
-MAX_SPHERES = 2048
+# Spheres per particle a block stages in shared memory (16 B each),
+# beside the kernel's 16.5 KB kept-pixel list, within the 48 KB a block
+# gets without opting in to more.
+MAX_SPHERES = 2000
 # The kernel's grid puts particles on its y axis and clients on its z.
 MAX_GRID_YZ = 65535
 
@@ -64,12 +70,9 @@ def _launch(spheres, rays, depth_obs, mask, clamp_t):
         mask = mask.to(torch.float32)
     args = [_build.kernel_input(name, t, device) for name, t in (
         ("spheres", spheres), ("rays", rays), ("depth_obs", depth_obs), ("mask", mask))]
-    lib = _build.library()
-    tiles = -(-p // lib.render_score_tile_pixels())
-    partial = torch.empty((b, n, tiles), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
-        err = lib.render_score_sums_launch(
-            *(t.data_ptr() for t in args), partial.data_ptr(), out.data_ptr(),
+        err = _build.library().render_score_sums_launch(
+            *(t.data_ptr() for t in args), out.data_ptr(),
             b, n, s, p, clamp_t, BACKGROUND_DEPTH, _build.stream_handle(device))
     _build.check(err, "render_score_sums")
     return out, True

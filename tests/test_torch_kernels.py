@@ -9,14 +9,15 @@ machine, which has no JAX, runs it:
 The tests marked ``gpu`` need a CUDA card and nvcc; elsewhere they skip
 with that reason.  Tolerances: K1 and K1b as ``tests/test_kernels.py``
 holds the Pallas kernel (rtol 2e-5 plus one silhouette-pixel flip,
-CLAMP_T / |B|, on the normalized score); K2 and K2b at rtol = atol =
-1e-6, as ``tests/test_pso_kernel.py``; the codec (K3, K3b, K4, K5, K5b,
-K6, K6b, K7) bit for bit.  A batched kernel's rows equal its unbatched
-kernel bit for bit.  The quantizer's plain version divides by a float32
-tensor on the input's device, so on the card it rounds as on the CPU;
-the tests hold each codec kernel against the plain version run on the
-CPU copy of its input, and the plain version on the card against that
-too.
+CLAMP_T / |B|, on the normalized score), and NaN for every particle of
+a client with a NaN depth anywhere, as in the reference; K2 and K2b at
+rtol = atol = 1e-6, as ``tests/test_pso_kernel.py``; the codec (K3,
+K3b, K4, K5, K5b, K6, K6b, K7) bit for bit.  A batched kernel's rows
+equal its unbatched kernel bit for bit.  The quantizer's plain version
+divides by a float32 tensor on the input's device, so on the card it
+rounds as on the CPU; the tests hold each codec kernel against the
+plain version run on the CPU copy of its input, and the plain version
+on the card against that too.
 """
 
 import numpy as np
@@ -214,24 +215,63 @@ def test_build_targets_hopper_without_fast_math():
     assert _build.library_path().parent == _build.BUILD_DIR
 
 
+MASK_CASES = ["bbox", "nan_masked", "nan_unmasked", "dense", "nonbinary", "single_pixel"]
+
+
+def _mask_case(case, depth, mask):
+    """(depth, mask) of a K1 case from the bounding-box mask ``mask``: a
+    NaN depth at a masked or at an unmasked pixel, an all-ones mask,
+    weights 0.5 and 2.0 on some pixels, or one pixel kept."""
+    depth, mask = depth.clone(), mask.clone()
+    inside = int(torch.nonzero(mask)[0])
+    if case == "nan_masked":
+        depth[inside] = float("nan")
+    elif case == "nan_unmasked":
+        depth[int(torch.nonzero(mask == 0)[0])] = float("nan")
+    elif case == "dense":
+        mask = torch.ones_like(mask)
+    elif case == "nonbinary":
+        mask[::3] *= 0.5
+        mask[1::17] *= 2.0
+    elif case == "single_pixel":
+        mask = torch.zeros_like(mask)
+        mask[inside] = 1.0
+    return depth, mask
+
+
+def _bit_equal(a, b):
+    """Same shape and float32 bits (NaN included)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", MASK_CASES)
 @pytest.mark.parametrize("n,scale,p_cut", [(64, 2, 0), (13, 1, 77)])
-def test_render_score_kernel_matches_plain(cuda, n, scale, p_cut):
+def test_render_score_kernel_matches_plain(cuda, n, scale, p_cut, case):
     """64 particles on a 64x64 camera, and 13 on 128x128 with P cut to a
-    ragged length (not a multiple of the kernel's pixel tile); a repeat
-    is bit-identical (no float atomics); an all-zero mask scores exactly
-    0.  The full-width (64, 16384) check is chip_smoke.py's."""
+    ragged length (not a multiple of the kernel's 256-pixel segment), for
+    each mask case: a NaN depth, masked or not, makes every sum NaN as in
+    the plain version; otherwise the sums match it.  A repeat is
+    bit-identical (no float atomics); where no depth is NaN an all-zero
+    mask scores exactly 0.  The full-width (64, 16384) checks are
+    chip_smoke.py's."""
     spheres, rays, depth, mask = _score_inputs(n, cuda, crop_camera(Camera(), scale))
     p = rays.shape[0] - p_cut
-    args = (spheres, rays[:p], depth[:p], mask[:p])
+    depth, mask = _mask_case(case, depth[:p], mask[:p])
+    args = (spheres, rays[:p], depth, mask)
     before = rs.launches
     got = rs.render_score_sums(*args)
     again = rs.render_score_sums(*args)
-    zero = rs.render_score_sums(*args[:3], torch.zeros_like(args[3]))
+    zero = rs.render_score_sums(*args[:3], torch.zeros_like(mask))
     assert rs.launches == before + 3
-    _assert_scores_close(got, rs.render_score_sums_plain(*args), args[3])
-    assert torch.equal(got, again)
-    assert bool((zero == 0).all())
+    want = rs.render_score_sums_plain(*args)
+    assert _bit_equal(got, again)
+    if case.startswith("nan"):
+        assert bool(torch.isnan(want).all()) and bool(torch.isnan(got).all())
+        assert bool(torch.isnan(zero).all())
+    else:
+        _assert_scores_close(got, want, mask)
+        assert bool((zero == 0).all())
 
 
 @pytest.mark.gpu
@@ -247,10 +287,13 @@ def test_pso_update_kernel_matches_plain(cuda, n):
 
 
 @pytest.mark.gpu
-def test_render_score_batched_kernel_matches_plain_and_k1(cuda):
+@pytest.mark.parametrize("case", MASK_CASES)
+def test_render_score_batched_kernel_matches_plain_and_k1(cuda, case):
     """K1b over 3 clients (64 particles on a 64x64 camera, P cut to a
-    ragged length): each row equals K1 on that client bit for bit and is
-    within K1's tolerance of the plain version."""
+    ragged length), with the mask case applied to client 2 alone: each
+    row equals K1 on that client bit for bit and is within K1's tolerance
+    of the plain version, except that a NaN depth in client 2 makes row 2,
+    and only row 2, NaN in both."""
     cam = crop_camera(Camera(), 2)
     rows = [_score_inputs(64, cuda, cam) for _ in range(3)]
     p = rows[0][1].shape[0] - 77
@@ -258,17 +301,23 @@ def test_render_score_batched_kernel_matches_plain_and_k1(cuda):
     for i in range(3):  # three different clients
         spheres[i, :, :, 2] += 0.01 * i
         mask[i, : 200 * i] = 0.0
-    args = (spheres, rays[:, :p], depth[:, :p], mask[:, :p])
+    depth, mask = depth[:, :p].clone(), mask[:, :p].clone()
+    depth[2], mask[2] = _mask_case(case, depth[2], mask[2])
+    args = (spheres, rays[:, :p], depth, mask)
     before = (rs.launches, rs.launches_batched)
     got = rs.render_score_sums_batched(*args)
     assert (rs.launches, rs.launches_batched) == (before[0], before[1] + 1)
     want = rs.render_score_sums_batched_plain(*args)
     for i in range(3):
-        assert torch.equal(got[i], rs.render_score_sums(*(a[i] for a in args)))
-        _assert_scores_close(got[i], want[i], args[3][i])
+        assert _bit_equal(got[i], rs.render_score_sums(*(a[i] for a in args)))
+        if case.startswith("nan") and i == 2:
+            assert bool(torch.isnan(want[i]).all()) and bool(torch.isnan(got[i]).all())
+        else:
+            assert bool(torch.isfinite(got[i]).all())
+            _assert_scores_close(got[i], want[i], args[3][i])
     normalized = ops.render_score_batched(*args)
     for i in range(3):
-        assert torch.equal(normalized[i], ops.render_score(*(a[i] for a in args)))
+        assert _bit_equal(normalized[i], ops.render_score(*(a[i] for a in args)))
 
 
 @pytest.mark.gpu

@@ -148,3 +148,58 @@ def test_render_score_padding_is_invisible():
         np.testing.assert_allclose(
             tops.render_score(*args, block_n=block_n, block_p=block_p).numpy(),
             base.numpy(), rtol=1e-6, atol=1e-7)
+
+
+def _nan_depth(d_o, mask, where):
+    """d_o with one NaN: at the first pixel inside the mask ("masked") or
+    the first outside it ("unmasked")."""
+    d_o = d_o.copy()
+    d_o[np.flatnonzero(mask if where == "masked" else ~mask)[0]] = np.nan
+    return d_o
+
+
+@pytest.mark.parametrize("where", ["masked", "unmasked"])
+def test_nan_depth_makes_every_sum_nan(where):
+    """One NaN observed depth, masked or not, gives a NaN sum for every
+    particle in the reference's oracle, its Pallas kernel (interpret mode)
+    and the port's K1 wrapper on CPU tensors (its plain version):
+    ``jnp.minimum`` and ``torch.clamp(max=)`` propagate NaN, and NaN * 0
+    is NaN.  The CUDA kernel must follow (``tests/test_torch_kernels.py``
+    holds it there on the card)."""
+    from repro.kernels import ref as jref
+    from repro_torch.kernels import render_score as trs
+
+    spheres, rays, d_o, mask = _score_inputs(8)
+    d_o = _nan_depth(d_o, mask, where)
+    j_args = [jnp.asarray(a) for a in (spheres, rays, d_o, mask)]
+    t_args = [torch.from_numpy(a) for a in (spheres, rays, d_o, mask)]
+    for got in (jref.render_score_sums(*j_args), jops.render_score(*j_args),
+                trs.render_score_sums(*t_args), tops.render_score(*t_args)):
+        got = np.asarray(got)
+        assert got.shape == (8,) and np.isnan(got).all()
+
+
+@pytest.mark.parametrize("where", ["masked", "unmasked"])
+def test_nan_depth_in_one_client_stays_in_its_row(where):
+    """The batched pair with a NaN depth in client 1 of 3: that row is NaN
+    for every particle, in the reference (Pallas, interpret mode) and in
+    the port (K1b's wrapper on CPU tensors, and ``ops``); the other rows
+    stay finite and within K1's tolerance of the reference."""
+    from repro_torch.kernels import render_score as trs
+
+    spheres, rays, d_o, mask = _score_inputs(8)
+    spheres = np.stack([spheres, spheres + np.float32(0.01), spheres[::-1].copy()])
+    rays = np.stack([rays] * 3)
+    depth = np.stack([d_o, _nan_depth(d_o, mask, where), d_o[::-1].copy()])
+    masks = np.stack([mask, mask, mask[::-1].copy()]).astype(np.float32)
+    ref = np.asarray(jops.render_score_batched(*(jnp.asarray(a) for a in (
+        spheres, rays, depth, masks))))
+    t_args = [torch.from_numpy(a) for a in (spheres, rays, depth, masks)]
+    sums = trs.render_score_sums_batched(*t_args).numpy()
+    port = tops.render_score_batched(*t_args).numpy()
+    for got in (ref, sums, port):
+        assert got.shape == (3, 8)
+        assert np.isnan(got[1]).all() and np.isfinite(got[[0, 2]]).all()
+    for b in (0, 2):
+        _assert_scores_close(port[b], ref[b], masks[b])
+        _assert_scores_close(sums[b] / max(float(masks[b].sum()), 1.0), ref[b], masks[b])
