@@ -10,43 +10,53 @@ Phases (any failure exits non-zero and prints no result line):
   3. K1 (render_score) against its plain version on the card: full width
      on frame 1's bounding-box mask, a ragged shape, an all-ones, a
      non-binary and a single-pixel mask, an all-zero mask (exactly 0), a
-     repeat (bit-identical), and a NaN depth at a masked and at an
-     unmasked pixel (every sum NaN, as the plain version);
+     repeat (bit-identical), a NaN depth at a masked and at an unmasked
+     pixel (every sum NaN, as the plain version), a NaN background
+     (every sum NaN) and clamp_t = inf (every pixel scored);
   4. K2 (pso_update) against its plain version at (64, 27) and (13, 27),
-     and the main path's evaluation on the card (forward kinematics + K1)
-     against the plain objective on the CPU for the same particles;
+     without and with the quaternion projection fused (the tracker's
+     launch), and the main path's evaluation on the card (forward
+     kinematics + K1) against the plain objective on the CPU for the same
+     particles;
   5. the main path: render a 30-frame 128x128 sequence and track it with
      ``Tracker`` at 64 particles x 30 generations from the true first
      pose; mean position error < 3 cm; K1 launched 31 times and K2 30
-     times per frame; per-frame time by CUDA events and its replay
-     through the 30 Hz ``FrameLoop``;
-  6. two frames under torch.profiler: device busy/idle share, kernel
-     time per frame, and K1's one kernel launched 31 times a frame;
+     times per frame, each K2 with the projection fused; per-frame time by
+     CUDA events and its replay through the 30 Hz ``FrameLoop``;
+  6. two frames under torch.profiler: device busy/idle share, device
+     activities a frame, kernel time per frame, and K1's one kernel
+     launched 31 times a frame;
   7. each kernel timed by CUDA events and profiler device time at the
      main path's shapes, beside its plain version and its bound on the
      card; K1 also on an all-ones mask, each with its kept-pixel count
-     and a bound counted over the kept pixels;
+     and a bound counted over the kept pixels; K2 fused and alone;
   8. the uplink: the phase-5 sequence streamed through the port's
      ``DeltaStreamEncoder`` -> ``DeltaStreamDecoder`` on the card at
      threshold 0 (every frame decodes bit-identical) and 0.01 m (every
      pixel within it), and once with a packet lost (the forced keyframe
-     arrives within ``resync_bound``); ``change_density`` per transition
-     and the wire ratio; K3b bit for bit against its plain version at
-     change_density's own (29, 128, 128) call, and change_density equal
-     to the plain masks' mean; K3, K3b (B = 4) and K4 bit for bit against
-     their plain versions at 128x128 and at the unaligned 240x320, with a
-     NaN tile and a -0.0/+0.0 tile; each timed beside its bound;
+     arrives within ``resync_bound``); ``change_density`` (K3b's
+     mask-only launch) per transition and the wire ratio; K3b bit for bit
+     against its plain version at change_density's own (29, 128, 128)
+     call, and change_density equal to the mean of the plain masks and of
+     the full launch's; K3, K3b (B = 4) and K4 bit for bit against their
+     plain versions at 128x128, at the unaligned 240x320 and at 240x322
+     (a width not a multiple of 4), with a NaN tile and a -0.0/+0.0 tile,
+     and the mask-only K3 and K3b equal to the full launches' masks, also
+     on 32x64 and 9x130 tiles (over 1,024 pixels: the kernel's chunk
+     loops); each timed beside its bound, K3 and K3b full and mask-only;
   9. the edge server's batched step at full width: 4 clients, each with
      its own decoded frame and 64-particle population, scored by K1b
-     (each row equal to K1 on that client), updated by K2b at (4, 64, 27)
-     (each swarm equal to K2), and scored again; then K1b with a NaN in
+     (each row equal to K1 on that client), updated by K2b with the
+     quaternion projection fused at (4, 64, 27) (each swarm equal to the
+     fused K2), and scored again; then K1b with a NaN in
      client 2's frame alone (row 2 NaN, every other row equal to K1); the
      fused launches timed against 4 solo launches (per_client_vs_solo);
  10. the quantized uplink: the clip through ``encode_frame`` ->
-     ``decode_frame`` (K6, K7, K3) in a closed loop at 16 and 8 bits over
-     (0, 10 m): every pixel within step/2 + 2 ulp(10) of the clipped
-     frame, each delta frame's exact wire bytes within 8 B of the
-     reference's identity; then the entropy stage: K5 on K3's threshold-0
+     ``decode_frame`` (K6, K7, K3's mask-only launch) in a closed loop at
+     16 and 8 bits over (0, 10 m): every pixel within step/2 + 2 ulp(10)
+     of the clipped frame, each delta frame's exact wire bytes within 8 B
+     of the reference's identity, each shipped mask equal to K3's full
+     launch and to the CPU's; then the entropy stage: K5 on K3's threshold-0
      residuals (equal to its plain version, and to the host coder's 64-word
      chunk widths), the host coder's roundtrip, and its bytes over raw at
      2 mm noise and on a noise-free clip;
@@ -55,7 +65,8 @@ Phases (any failure exits non-zero and prints no result line):
      (0.1, 10), with half-step ties and a NaN/+-inf/-0.0 tile (and K5 with
      a width-32 and a width-0 tile); whether PyTorch's own division by a
      Python float rounds those ties as the true division does;
- 12. the codec model's density calibration on the card (K3b at 8x32)
+ 12. the codec model's density calibration on the card (K3b's mask-only
+     launch at 8x32)
      against the port's CPU run: densities equal, (gain, floor) to 1e-9;
  13. in the batched step, K6b quantizes the 4 clients' frames and K5b
      scans their 4 residual planes, each row equal to K6/K5 alone;
@@ -159,10 +170,13 @@ def _population(torch, hm, cam, truth, frames, n, device, seed):
     return hm.pack_spheres(hs), cam.rays_flat(device), depth.reshape(-1), mask
 
 
-def _normalized_err(torch, got, want, mask):
+def _normalized_err(torch, got, want, mask, flip=0.30):
+    """max |got - want| of the normalized scores, and whether it is within
+    rtol K1_TOL_RTOL plus one silhouette flip (``flip``, the most one
+    pixel's term can change: CLAMP_T at the defaults)."""
     denom = max(float(mask.sum()), 1.0)
     err = (got / denom - want / denom).abs()
-    tol = K1_TOL_RTOL * (want / denom).abs() + 0.30 / denom + 1e-6
+    tol = K1_TOL_RTOL * (want / denom).abs() + flip / denom + 1e-6
     return float(err.max()), bool((err <= tol).all())
 
 
@@ -234,6 +248,26 @@ def phase_k1(torch, rs, inputs):
               f"{k.numel()} sums NaN, plain {int(torch.isnan(plain).sum())}")
         log(f"[K1] one NaN depth at one {where} pixel: all {k.numel()} sums NaN, "
             f"as the plain version")
+
+    # The keywords of the reference's Pallas kernel: a NaN background
+    # makes every sum NaN; clamp_t = inf scores every pixel (a masked-out
+    # term is then |d_h - d_o| * 0), and one silhouette flip between a hit
+    # (under 1 m) and the 10 m background can move a term by 11 m.
+    kw = dict(background=float("nan"))
+    k = rs.render_score_sums(spheres, rays, depth, mask, **kw)
+    plain = rs.render_score_sums_plain(spheres, rays, depth, mask, **kw)
+    check(bool(torch.isnan(plain).all()) and bool(torch.isnan(k).all()),
+          f"K1 at a NaN background: {int(torch.isnan(k).sum())} of {k.numel()} sums NaN, "
+          f"plain {int(torch.isnan(plain).sum())}")
+    log(f"[K1] NaN background: all {k.numel()} sums NaN, as the plain version")
+    kw = dict(clamp_t=float("inf"))
+    k = rs.render_score_sums(spheres, rays, depth, mask, **kw)
+    plain = rs.render_score_sums_plain(spheres, rays, depth, mask, **kw)
+    c_err, c_ok = _normalized_err(torch, k, plain, mask, flip=11.0)
+    check(c_ok and bool(torch.isfinite(k).all()),
+          f"K1 at clamp_t = inf disagrees with its plain version: max|err| {c_err:.3g}")
+    log(f"[K1] clamp_t = inf (every pixel scored): max|err| {c_err:.3g} "
+        f"(tol rtol {K1_TOL_RTOL} + 11/|B| + 1e-6)")
     return err
 
 
@@ -253,8 +287,22 @@ def phase_k2(torch, pu, device):
             check(bool(torch.allclose(got, want, rtol=K2_TOL, atol=K2_TOL)),
                   f"K2 at ({n}, 27) disagrees with its plain version")
         err = max(float((kx - px).abs().max()), float((kv - pv).abs().max()))
-        full_width_err = err if full_width_err is None else full_width_err
         log(f"[K2] ({n}, 27): max|err| {err:.3g} (tol rtol = atol = {K2_TOL})")
+        # the tracker's launch: the update and the quaternion projection fused
+        args = (x.clone(), *args[1:])
+        args[0][:, 3:7] *= 2.0  # off the unit sphere, as the update leaves it
+        fx, fv = pu.pso_update_projected(*args, **consts)
+        qx, qv = pu.pso_update_projected_plain(*args, **consts)
+        torch.cuda.synchronize()
+        for got, want in ((fx, qx), (fv, qv)):
+            check(bool(torch.allclose(got, want, rtol=K2_TOL, atol=K2_TOL)),
+                  f"fused K2 (update + projection) at ({n}, 27) disagrees with its plain version")
+        f_err = max(float((fx - qx).abs().max()), float((fv - qv).abs().max()))
+        norm_err = float((torch.linalg.vector_norm(fx[:, 3:7], dim=-1) - 1.0).abs().max())
+        log(f"[K2] fused with the quaternion projection, ({n}, 27): max|err| {f_err:.3g} "
+            f"(tol rtol = atol = {K2_TOL}); max ||q| - 1| {norm_err:.3g}")
+        err = max(err, f_err)
+        full_width_err = err if full_width_err is None else full_width_err
     return full_width_err
 
 
@@ -288,7 +336,7 @@ def phase_main_path(torch, tracker_mod, rs, pu, frames, truth, device):
     torch.cuda.synchronize()
 
     rs.launches = 0
-    pu.launches = 0
+    pu.launches = pu.launches_projected = 0
     frame_ms, errs = [], []
     for i in range(1, frames.shape[0]):
         start = torch.cuda.Event(enable_timing=True)
@@ -300,7 +348,7 @@ def phase_main_path(torch, tracker_mod, rs, pu, frames, truth, device):
         frame_ms.append(start.elapsed_time(end))
         check(bool(torch.isfinite(h).all()) and score == score, f"frame {i}: non-finite output")
         errs.append(float(torch.linalg.vector_norm(h[:3] - truth[i][:3])))
-    k1, k2 = rs.launches, pu.launches
+    k1, k2, k2_projected = rs.launches, pu.launches, pu.launches_projected
 
     tracked = len(frame_ms)
     per_frame = 1 + cfg.pso.num_generations
@@ -308,9 +356,12 @@ def phase_main_path(torch, tracker_mod, rs, pu, frames, truth, device):
     log(f"[main] mean position error {mean_err * 100:.3f} cm (max {max(errs) * 100:.3f} cm)")
     check(mean_err < 0.03, f"mean position error {mean_err:.4f} m >= 3 cm")
     log(f"[main] launches: K1 {k1} (expected {tracked * per_frame}), "
-        f"K2 {k2} (expected {tracked * cfg.pso.num_generations})")
+        f"K2 {k2} (expected {tracked * cfg.pso.num_generations}, "
+        f"{cfg.pso.num_generations} a frame), of which with the quaternion projection "
+        f"fused {k2_projected}")
     check(k1 == tracked * per_frame, "K1 launch count off the main path")
     check(k2 == tracked * cfg.pso.num_generations, "K2 launch count off the main path")
+    check(k2_projected == k2, "the tracker's K2 launches did not fuse the projection")
     log(f"[main] frame time by CUDA events: mean {statistics.fmean(frame_ms):.3f} ms, "
         f"median {statistics.median(frame_ms):.3f} ms, min {min(frame_ms):.3f} ms, "
         f"max {max(frame_ms):.3f} ms")
@@ -373,7 +424,8 @@ def phase_profile(torch, tracker_mod, frames, truth, device):
     }
     log(f"[profile] per frame: wall {out['frame_ms']:.3f} ms, device busy "
         f"{out['busy_ms']:.3f} ms (idle {out['idle_share'] * 100:.1f}%), "
-        f"{out['activities_per_frame']:.0f} device activities; K1 {out['k1_ms']:.3f} ms, "
+        f"{out['activities_per_frame']:.0f} device activities (6,232 before the "
+        f"projection was fused into K2); K1 {out['k1_ms']:.3f} ms, "
         f"K2 {out['k2_ms']:.3f} ms, other kernels/copies {out['other_ms']:.3f} ms")
     log(f"[profile] device time per launch: K1 {out['k1_device_ms_per_launch'] * 1e3:.2f} us "
         f"(on the frames' own masks), K2 {out['k2_device_ms_per_launch'] * 1e3:.2f} us; "
@@ -455,7 +507,7 @@ def _time_k1(torch, rs, label, args, reps=200):
                 library_ms=None)
 
 
-def phase_timing(torch, rs, pu, inputs, device, k1_err, k2_err, launches, prof):
+def phase_timing(torch, rs, pu, inputs, device, k1_err, k2_err, launches):
     from repro_torch.kernels import _build
 
     spheres, rays, depth, mask = inputs
@@ -465,6 +517,10 @@ def phase_timing(torch, rs, pu, inputs, device, k1_err, k2_err, launches, prof):
         f"K1b at B={CLIENTS} {CLIENTS * n}")
     k1 = _time_k1(torch, rs, "frame 1's bounding-box mask", inputs)
     _time_k1(torch, rs, "all-ones mask", (spheres, rays, depth, torch.ones_like(mask)))
+    dev = _device_ms(torch, lambda: rs.render_score_sums(*inputs, clamp_t=float("inf")), 20,
+                     ["render_score_kernel"])
+    log(f"[time] K1 at frame 1's mask and clamp_t = inf (every pixel scored): device "
+        f"{_us(dev)}")
 
     consts = dict(inertia=0.7298, cognitive=1.49618, social=1.49618, velocity_clip=0.5)
     gen = torch.Generator(device=device).manual_seed(3)
@@ -473,16 +529,27 @@ def phase_timing(torch, rs, pu, inputs, device, k1_err, k2_err, launches, prof):
     lo, hi = -0.5 - u(d), 0.5 + u(d)
     args = (lo + u(64, d) * (hi - lo), u(64, d) - 0.5, lo + u(64, d) * (hi - lo),
             lo + u(d) * (hi - lo), u(64, d), u(64, d), lo, hi)
-    k2_ms = _time_ms(torch, lambda: pu.pso_update(*args, **consts), 500)
-    k2_plain = _time_ms(torch, lambda: pu.pso_update_plain(*args, **consts), 200)
-    # 17 fp32 ops per element; bytes: five (N, D) planes read, three (D,)
-    # rows read, two (N, D) planes written.
-    k2_ops = 17 * 64 * d
+    unfused = lambda: pu.pso_update(*args, **consts)
+    fused = lambda: pu.pso_update_projected(*args, **consts)
+    k2_unfused_ms = _time_ms(torch, unfused, 500)
+    k2_unfused_dev = _device_ms(torch, unfused, 50, ["pso_update_kernel"])
+    k2_ms = _time_ms(torch, fused, 500)
+    k2_dev = _device_ms(torch, fused, 50, ["pso_update_kernel"])
+    k2_plain = _time_ms(torch, lambda: pu.pso_update_projected_plain(
+        *args, **consts), 200)
+    k2_unfused_plain = _time_ms(torch, lambda: pu.pso_update_plain(*args, **consts), 200)
+    # 17 fp32 ops per element, and per particle 7 for |q|^2, a sqrt, an
+    # add and 4 divisions; bytes: five (N, D) planes read, three (D,) rows
+    # read, two (N, D) planes written.
+    k2_ops = 17 * 64 * d + 13 * 64
     k2_bytes = 4 * (7 * 64 * d + 3 * d)
-    k2_bound = 1e3 * max(k2_ops / PEAK_FP32_FLOPS, k2_bytes / PEAK_BYTES_PER_S)
-    log(f"[time] K2 at (64, {d}): kernel {k2_ms * 1e3:.2f} us, plain {k2_plain * 1e3:.2f} us, "
-        f"bound {k2_bound * 1e3:.4f} us ({k2_bytes} B / 3.35 TB/s; {k2_ops} fp32 ops); "
-        f"no single PyTorch call computes it")
+    k2_bound, k2_by = _bound(k2_ops, k2_bytes)
+    log(f"[time] K2 at (64, {d}), update + quaternion projection (the tracker's launch): "
+        f"events {_us(k2_ms)}, device {_us(k2_dev)}, plain {_us(k2_plain)} (the update, then "
+        f"normalize_configuration's ops); update alone: events {_us(k2_unfused_ms)}, device "
+        f"{_us(k2_unfused_dev)}, plain {_us(k2_unfused_plain)}; bound {k2_bound * 1e3:.4f} us "
+        f"({k2_by}: {k2_bytes} B / 3.35 TB/s; {k2_ops} fp32 ops); no single PyTorch call "
+        f"computes it")
     return [
         {"name": "render_score_sums", "route": "cuda",
          "source": "src/repro_torch/csrc/render_score.cu",
@@ -492,10 +559,8 @@ def phase_timing(torch, rs, pu, inputs, device, k1_err, k2_err, launches, prof):
          "source": "src/repro_torch/csrc/pso_update.cu",
          "replaces": "src/repro/kernels/pso_update.py:72",
          "launches": launches["k2"], "max_abs_err": k2_err, "ms": k2_ms,
-         "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by":
-         "operations" if k2_ops / PEAK_FP32_FLOPS >= k2_bytes / PEAK_BYTES_PER_S else "bytes",
-         "library_ms": None,
-         "device_ms": prof["k2_device_ms_per_launch"] if prof else None},
+         "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
+         "library_ms": None, "device_ms": k2_dev},
     ]
 
 
@@ -529,8 +594,10 @@ def _value_err(torch, got, want):
 
 
 def _device_ms(torch, fn, reps, names):
-    """Device time per call of fn (ms) by torch.profiler, summed over the
-    kernels whose names contain one of ``names``; None if it saw none."""
+    """Device time (ms) per launch of the kernel whose name contains one
+    of ``names``, by torch.profiler, for an fn that launches it once a
+    call: the mean over the launches the profiler recorded (it may drop
+    some; the count is printed then); None if it saw none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -541,13 +608,15 @@ def _device_ms(torch, fn, reps, names):
             fn()
         torch.cuda.synchronize()
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    total = sum(e.time_range.end - e.time_range.start for e in device
-                if any(n in e.name for n in names))
-    if not total:
+    spans = [e.time_range.end - e.time_range.start for e in device
+             if any(n in e.name for n in names)]
+    if not spans:
         log(f"[profile] no device activity named {names} in {reps} calls; the profiler "
             f"saw {sorted({e.name for e in device})[:8]}")
         return None
-    return total / reps / 1e3
+    if len(spans) != reps:
+        log(f"[profile] {len(spans)} launches of {names} recorded in {reps} calls")
+    return sum(spans) / len(spans) / 1e3
 
 
 def _us(ms):
@@ -659,13 +728,16 @@ def phase_codec_kernels(torch, ck, frames, densities, device):
         pd, pm = ck.delta_encode_plain(frames[1:], frames[:-1], threshold=thr)
         check(_bit_equal(torch, bd, pd) and _bit_equal(torch, bm, pm),
               f"K3b at {tuple(bd.shape)}, threshold {thr}: differs from its plain version")
-        check(_bit_equal(torch, density, pm.mean(dim=(1, 2))),
-              f"change_density at threshold {thr} differs from its plain masks' mean")
+        check(_bit_equal(torch, density, pm.mean(dim=(1, 2)))
+              and _bit_equal(torch, density, bm.mean(dim=(1, 2))),
+              f"change_density (K3b's mask-only launch) at threshold {thr} differs from "
+              f"the mean of the plain masks or of the full launch's")
         errs["k3b"] = max(errs["k3b"], _value_err(torch, bd, pd), _value_err(torch, bm, pm))
     log(f"[codec] K3b at change_density's {tuple(frames[1:].shape)}, thresholds "
         f"{tuple(densities)}: delta and mask bit-identical to the plain version, "
-        f"change_density equal to the plain masks' mean")
-    for h, w in ((128, 128), (240, 320)):
+        f"change_density (mask-only launch) equal to the mean of the plain masks and of "
+        f"the full launch's")
+    for h, w in ((128, 128), (240, 320), (240, 322)):
         f, r = _codec_planes(torch, frames, h, w, device, seed=h)
         for thr in STREAM_THRESHOLDS:
             d, m = ck.delta_encode(f[0], r[0], threshold=thr)
@@ -685,6 +757,10 @@ def phase_codec_kernels(torch, ck, frames, densities, device):
                 di, mi = ck.delta_encode(f[i], r[i], threshold=thr)
                 check(_bit_equal(torch, bd[i], di) and _bit_equal(torch, bm[i], mi),
                       f"K3b row {i} at {h}x{w} differs from K3 on that client")
+            check(_bit_equal(torch, ck._delta_mask(f[0], r[0], threshold=thr), m)
+                  and _bit_equal(torch, ck._delta_mask(f, r, threshold=thr), bm),
+                  f"the mask-only K3 or K3b at {h}x{w}, threshold {thr}: differs from the "
+                  f"full launch's mask")
             errs["k3b"] = max(errs["k3b"], _value_err(torch, bd, pbd),
                               _value_err(torch, bm, pbm))
             out = ck.delta_decode(d, r[0])
@@ -695,7 +771,30 @@ def phase_codec_kernels(torch, ck, frames, densities, device):
             check(_bit_equal(torch, out[changed], f[0][changed]),
                   f"K3 -> K4 at {h}x{w}: a changed tile does not reconstruct bit for bit")
         log(f"[codec] {h}x{w}, thresholds {STREAM_THRESHOLDS}: K3, K3b (B={CLIENTS}, rows = K3) "
-            f"and K4 bit-identical to their plain versions; NaN and -0.0/+0.0 tiles unchanged")
+            f"and K4 bit-identical to their plain versions, the mask-only K3 and K3b to the "
+            f"full launches' masks; NaN and -0.0/+0.0 tiles unchanged")
+    # tiles of over 1,024 pixels run the kernel's loops over later chunks:
+    # 32x64 on the vector path, 9x130 on the scalar path, both ragged
+    for h, w, bh, bw in ((240, 320, 32, 64), (240, 322, 9, 130)):
+        f, r = _codec_planes(torch, frames, h, w, device, seed=h + bh)
+        for thr in STREAM_THRESHOLDS:
+            tile = dict(threshold=thr, block_h=bh, block_w=bw)
+            d, m = ck.delta_encode(f[0], r[0], **tile)
+            bd, bm = ck.delta_encode_batched(f, r, **tile)
+            pd, pm = ck.delta_encode_plain(f, r, **tile)
+            check(_bit_equal(torch, d, pd[0]) and _bit_equal(torch, m, pm[0])
+                  and _bit_equal(torch, bd, pd) and _bit_equal(torch, bm, pm),
+                  f"K3 or K3b at {h}x{w} on {bh}x{bw} tiles, threshold {thr}: differs from "
+                  f"its plain version")
+            check(_bit_equal(torch, ck._delta_mask(f[0], r[0], **tile), m)
+                  and _bit_equal(torch, ck._delta_mask(f, r, **tile), bm),
+                  f"the mask-only K3 or K3b at {h}x{w} on {bh}x{bw} tiles: differs from the "
+                  f"full launch's mask")
+            errs["k3"] = max(errs["k3"], _value_err(torch, d, pd[0]))
+            errs["k3b"] = max(errs["k3b"], _value_err(torch, bd, pd))
+        log(f"[codec] {h}x{w} on {bh}x{bw} tiles ({bh * bw} pixels), thresholds "
+            f"{STREAM_THRESHOLDS}: K3, K3b and their mask-only launches bit-identical to the "
+            f"plain version")
     return errs
 
 
@@ -711,13 +810,15 @@ HEADER_NBYTES = 64
 def phase_quant_uplink(torch, ck, cref, wire, frames, lo, hi):
     """The clip through the quantized wire format in a closed loop on the
     card: frame 0 is a keyframe (K6, K7), every later frame is encoded
-    against the receiver's previous reconstruction and decoded."""
+    against the receiver's previous reconstruction and decoded.  Returns
+    the ratios, and each delta frame's (bits, frame, reference, mask) for
+    phase_encode_masks."""
     import numpy as np
 
     t_count, h, w = frames.shape
     raw = h * w * 4
     tol_ulp = 2 * float(np.spacing(np.float32(hi)))
-    out = {}
+    out, encoded = {}, []
     for bits in QUANT_BITS:
         step = cref.quant_step(lo, hi, bits)
         words = ck.quantize_pack(frames[0], lo, hi, bits=bits)
@@ -727,6 +828,7 @@ def phase_quant_uplink(torch, ck, cref, wire, frames, lo, hi):
         for t in range(t_count):
             if t:
                 words, mask = wire.encode_frame(frames[t], recon, lo, hi, bits=bits)
+                encoded.append((bits, frames[t], recon, mask))
                 recon = wire.decode_frame(words, mask, recon, lo, hi, bits=bits)
                 density = float(mask.mean())
                 exact = cref.encoded_nbytes_exact(mask, bits=bits,
@@ -753,7 +855,25 @@ def phase_quant_uplink(torch, ck, cref, wire, frames, lo, hi):
             f"{out[bits]['density']:.4f}; wire {wire_nbytes} B of {raw * t_count} B raw, "
             f"ratio {ratio:.4f} (keyframe + {t_count - 1} deltas, {HEADER_NBYTES} B headers); "
             f"exact bytes within {identity_gap:.3f} B of the model's identity")
-    return out
+    return out, encoded
+
+
+def phase_encode_masks(torch, ck, cref, wire, encoded, lo, hi):
+    """Each change mask the quantized uplink shipped (encode_frame, K3's
+    mask-only launch) against K3's full launch on the same dequantized
+    planes, and against encode_frame's plain composition on the CPU, bit
+    for bit."""
+    for bits, frame, ref, mask in encoded:
+        recon = ck.unpack_dequantize(ck.quantize_pack(frame, lo, hi, bits=bits), lo, hi,
+                                     bits=bits)
+        ref_recon = ck.unpack_dequantize(ck.quantize_pack(ref, lo, hi, bits=bits), lo, hi,
+                                         bits=bits)
+        _, full = ck.delta_encode(recon, ref_recon, threshold=cref.quant_step(lo, hi, bits) / 2)
+        _, host = wire.encode_frame(frame.cpu(), ref.cpu(), lo, hi, bits=bits)
+        check(_bit_equal(torch, mask, full) and _bit_equal(torch, mask.cpu(), host),
+              f"encode_frame's mask at {bits} bits differs from K3's full launch or the CPU")
+    log(f"[quant] the {len(encoded)} masks encode_frame shipped (K3's mask-only launch) equal "
+        f"K3's full launch on the same planes and the CPU composition, bit for bit")
 
 
 def phase_entropy(torch, ck, cref, clips):
@@ -877,11 +997,14 @@ def phase_quant_kernels(torch, ck, cref, frames, device):
 def phase_calibration(torch, ck, wire, rate, rgbd):
     """The rate controller's motion -> density fit on the card (K3b at the
     calibration's 8x32 tile) against the port's CPU run."""
-    before = ck.launches["delta_encode_batched"]
+    before = dict(ck.launches)
     gain, floor = rate.calibrate_density_map(device="cuda")
     torch.cuda.synchronize()
-    launched = ck.launches["delta_encode_batched"] - before
-    check(launched == 1, f"calibrate_density_map launched K3b {launched} times, expected 1")
+    launched = ck.launches["delta_encode_batched"] - before["delta_encode_batched"]
+    mask_only = ck.launches["delta_encode_mask_only"] - before["delta_encode_mask_only"]
+    check(launched == 1 and mask_only == 1,
+          f"calibrate_density_map launched K3b {launched} times ({mask_only} mask-only), "
+          f"expected 1 mask-only launch")
     cpu_gain, cpu_floor = rate.calibrate_density_map(device="cpu")
     cfg = rgbd.SequenceConfig(num_frames=60, noise_std=0.0)  # the calibration's default
     kw = dict(threshold=0.0, block_h=8, block_w=32)
@@ -939,6 +1062,7 @@ def phase_batched_step(torch, hm, tracker_mod, ops_mod, rs, pu, ck, decoded, tru
     torch.cuda.synchronize()
 
     rs.launches = rs.launches_batched = pu.launches = pu.launches_batched = 0
+    pu.launches_projected = 0
     for key in ck.launches:
         ck.launches[key] = 0
     words = ck.quantize_pack_batched(decoded[frame_idx], q_lo, q_hi, bits=8)
@@ -946,18 +1070,19 @@ def phase_batched_step(torch, hm, tracker_mod, ops_mod, rs, pu, ck, decoded, tru
     spheres = hm.pack_spheres(hs)
     scores = ops_mod.render_score_batched(spheres, rays, depth, masks)
     gbest = hs[torch.arange(CLIENTS, device=device), torch.argmin(scores, dim=1)]
-    x_new, v_new = pu.pso_update_batched(hs, v, pbest, gbest, r1, r2, lo, hi, **UPDATE_CONSTS)
-    scores_new = ops_mod.render_score_batched(
-        hm.pack_spheres(hm.normalize_configuration(x_new)), rays, depth, masks)
+    x_new, v_new = pu.pso_update_projected_batched(hs, v, pbest, gbest, r1, r2, lo, hi,
+                                                   **UPDATE_CONSTS)
+    scores_new = ops_mod.render_score_batched(hm.pack_spheres(x_new), rays, depth, masks)
     torch.cuda.synchronize()
     launches = {"k1b": rs.launches_batched, "k2b": pu.launches_batched,
                 "k6b": ck.launches["quantize_pack_batched"],
                 "k5b": ck.launches["significant_bit_widths_batched"]}
     solo = rs.launches + pu.launches + ck.launches["quantize_pack"] + ck.launches[
         "significant_bit_widths"]
-    check(launches == {"k1b": 2, "k2b": 1, "k6b": 1, "k5b": 1} and solo == 0,
+    check(launches == {"k1b": 2, "k2b": 1, "k6b": 1, "k5b": 1} and solo == 0
+          and pu.launches_projected == 1,
           f"batched step launched {launches} and {solo} unbatched kernels: expected K1b 2, "
-          f"K2b 1, K6b 1, K5b 1 and no unbatched kernel")
+          f"K2b 1 (with the projection), K6b 1, K5b 1 and no unbatched kernel")
     for b in range(CLIENTS):
         check(_bit_equal(torch, words[b], ck.quantize_pack(decoded[frame_idx[b]], q_lo, q_hi, bits=8)),
               f"K6b row {b} differs from K6 on that client's frame")
@@ -987,16 +1112,17 @@ def phase_batched_step(torch, hm, tracker_mod, ops_mod, rs, pu, ck, decoded, tru
         err, ok = _normalized_err(torch, scores[b] * denom[b], plain[b], masks[b])
         check(ok, f"K1b row {b} disagrees with its plain version: max|err| {err:.3g}")
         k1b_err = max(k1b_err, err)
-    px, pv = pu.pso_update_batched_plain(hs, v, pbest, gbest, r1, r2, lo, hi, **UPDATE_CONSTS)
+    px, pv = pu.pso_update_projected_batched_plain(hs, v, pbest, gbest, r1, r2, lo, hi,
+                                                   **UPDATE_CONSTS)
     for got, want in ((x_new, px), (v_new, pv)):
         check(bool(torch.allclose(got, want, rtol=K2_TOL, atol=K2_TOL)),
-              "K2b disagrees with its plain version")
+              "the fused K2b disagrees with its plain version")
     k2b_err = max(float((x_new - px).abs().max()), float((v_new - pv).abs().max()))
     for b in range(CLIENTS):
-        sx, sv = pu.pso_update(hs[b], v[b], pbest[b], gbest[b], r1[b], r2[b], lo[b], hi[b],
-                               **UPDATE_CONSTS)
+        sx, sv = pu.pso_update_projected(hs[b], v[b], pbest[b], gbest[b], r1[b], r2[b], lo[b],
+                                         hi[b], **UPDATE_CONSTS)
         check(_bit_equal(torch, x_new[b], sx) and _bit_equal(torch, v_new[b], sv),
-              f"K2b swarm {b} differs from K2 on that swarm")
+              f"the fused K2b's swarm {b} differs from the fused K2 on that swarm")
     nan_depth = depth.clone()
     nan_depth[2] = _with_nan(depth[2], masks[2], "masked")
     nan_sums = rs.render_score_sums_batched(spheres, rays, nan_depth, masks)
@@ -1015,8 +1141,9 @@ def phase_batched_step(torch, hm, tracker_mod, ops_mod, rs, pu, ck, decoded, tru
     log(f"[batched] K1b with a NaN depth in client 2's frame: row 2 all NaN as the plain "
         f"version, rows 0, 1, 3 finite; every row bit-identical to K1 on that client")
     log(f"[batched] K1b rows bit-identical to K1; max|err| of E_D against plain {k1b_err:.3g} "
-        f"(tol rtol {K1_TOL_RTOL} + CLAMP_T/|B| + 1e-6). K2b at {tuple(hs.shape)} "
-        f"bit-identical to K2 per swarm; max|err| against plain {k2b_err:.3g} (tol {K2_TOL})")
+        f"(tol rtol {K1_TOL_RTOL} + CLAMP_T/|B| + 1e-6). K2b with the quaternion projection "
+        f"at {tuple(hs.shape)} bit-identical to the fused K2 per swarm; max|err| against "
+        f"plain {k2b_err:.3g} (tol {K2_TOL})")
     inputs = {"score": (spheres, rays, depth, masks),
               "update": (hs, v, pbest, gbest, r1, r2, lo, hi),
               "frames": decoded[frame_idx], "residuals": residuals}
@@ -1060,55 +1187,64 @@ def phase_slice2_timing(torch, rs, pu, ck, frames, step_inputs, device):
 
     args = step_inputs["update"]
     b, n, d = args[0].shape
-    fused = lambda: pu.pso_update_batched(*args, **UPDATE_CONSTS)
-    solo = lambda: pu.pso_update(*(a[0] for a in args), **UPDATE_CONSTS)
+    fused = lambda: pu.pso_update_projected_batched(*args, **UPDATE_CONSTS)
+    solo = lambda: pu.pso_update_projected(*(a[0] for a in args), **UPDATE_CONSTS)
+    unprojected = lambda: pu.pso_update_batched(*args, **UPDATE_CONSTS)
     ms, solo_ms = _time_ms(torch, fused, 500), _time_ms(torch, solo, 500)
+    unprojected_ms = _time_ms(torch, unprojected, 500)
     dev = _device_ms(torch, fused, 50, ["pso_update_kernel"])
     dev_solo = _device_ms(torch, solo, 50, ["pso_update_kernel"])
-    # five (B, N, D) planes read and two written; gbest, lo and hi (B, D)
+    dev_unprojected = _device_ms(torch, unprojected, 50, ["pso_update_kernel"])
+    # five (B, N, D) planes read and two written; gbest, lo and hi (B, D);
+    # 17 fp32 ops an element and 13 a particle for the projection
     nbytes = 4 * (7 * b * n * d + 3 * b * d)
-    bound, by = _bound(17 * b * n * d, nbytes)
-    plain_ms = _time_ms(torch, lambda: pu.pso_update_batched_plain(*args, **UPDATE_CONSTS), 200)
+    bound, by = _bound(17 * b * n * d + 13 * b * n, nbytes)
+    plain_ms = _time_ms(torch, lambda: pu.pso_update_projected_batched_plain(*args, **UPDATE_CONSTS), 200)
     out["k2b"] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                       library_ms=None)
     per_client_dev = (None if dev is None or dev_solo is None
                       else f"{dev / (b * dev_solo):.3f}")
-    log(f"[time] K2b at ({b}, {n}, {d}): fused {_us(ms)} (device {_us(dev)}), one solo K2 "
-        f"{_us(solo_ms)} (device {_us(dev_solo)}); per_client_vs_solo "
-        f"{ms / (b * solo_ms):.3f} (events), {per_client_dev} (device); plain "
-        f"{_us(plain_ms)}; bound {bound * 1e3:.4f} us ({nbytes} B)")
+    log(f"[time] K2b at ({b}, {n}, {d}), update + quaternion projection (the batched step's "
+        f"launch): fused {_us(ms)} (device {_us(dev)}), one solo K2 {_us(solo_ms)} (device "
+        f"{_us(dev_solo)}); per_client_vs_solo {ms / (b * solo_ms):.3f} (events), "
+        f"{per_client_dev} (device); update alone {_us(unprojected_ms)} (device "
+        f"{_us(dev_unprojected)}); plain {_us(plain_ms)}; bound {bound * 1e3:.4f} us "
+        f"({nbytes} B)")
 
-    def codec_bytes(planes, h, w):  # two float planes read; the delta and mask written
-        return 4 * planes * (3 * h * w + -(-h // 8) * -(-w // 128))
+    def codec_bytes(planes, h, w, write_delta=True):
+        # two float planes read; the delta (unless mask-only) and mask written
+        return 4 * planes * ((3 if write_delta else 2) * h * w + -(-h // 8) * -(-w // 128))
+
+    def time_encode(key, label, ff, rr, planes, reps):
+        """One shape's full and mask-only launch: events, device time, bound."""
+        batched = ff.dim() == 3
+        full = ((lambda: ck.delta_encode_batched(ff, rr, threshold=0.01)) if batched
+                else (lambda: ck.delta_encode(ff, rr, threshold=0.01)))
+        mask_only = lambda: ck._delta_mask(ff, rr, threshold=0.01)
+        plain = lambda: ck.delta_encode_plain(ff if batched else ff[None],
+                                              rr if batched else rr[None], threshold=0.01)
+        h, w = ff.shape[-2:]
+        plain_ms = _time_ms(torch, plain, 20)
+        for variant, fn, write in (("full", full, True), ("mask-only", mask_only, False)):
+            ms = _time_ms(torch, fn, reps)
+            dev = _device_ms(torch, fn, 50, ["delta_encode_kernel"])
+            nbytes = codec_bytes(planes, h, w, write)
+            bound, by = _bound(0, nbytes)
+            log(f"[time] {label}, {variant}: {_us(ms)} (device {_us(dev)}), plain "
+                f"{_us(plain_ms)}, bound {bound * 1e3:.4f} us ({nbytes} B)")
+            if key and write:
+                out[key] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound,
+                                bound_by=by, library_ms=None)
+            elif key:
+                out[key]["mask_only"] = dict(ms=ms, device_ms=dev, bound_ms=bound)
 
     t_count, h, w = frames.shape
     f, r = frames[1], frames[0]
     wide_f, wide_r = _codec_planes(torch, frames, 240, 320, device, seed=1)
-    for label, ff, rr in (("128x128", f, r), ("240x320", wide_f[0], wide_r[0])):
-        enc = lambda: ck.delta_encode(ff, rr, threshold=0.01)
-        ms = _time_ms(torch, enc, 500)
-        dev = _device_ms(torch, enc, 50, ["delta_encode_kernel"])
-        plain_ms = _time_ms(torch, lambda: ck.delta_encode_plain(
-            ff[None], rr[None], threshold=0.01), 100)
-        nbytes = codec_bytes(1, *ff.shape)
-        bound, by = _bound(0, nbytes)
-        log(f"[time] K3 at {label}: {_us(ms)} (device {_us(dev)}), plain {_us(plain_ms)}, "
-            f"bound {bound * 1e3:.4f} us ({nbytes} B)")
-        if label == "128x128":
-            out["k3"] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound,
-                             bound_by=by, library_ms=None)
-
-    enc = lambda: ck.delta_encode_batched(frames[1:], frames[:-1], threshold=0.01)
-    ms = _time_ms(torch, enc, 500)
-    dev = _device_ms(torch, enc, 50, ["delta_encode_kernel"])
-    plain_ms = _time_ms(torch, lambda: ck.delta_encode_plain(
-        frames[1:], frames[:-1], threshold=0.01), 20)
-    nbytes = codec_bytes(t_count - 1, h, w)
-    bound, by = _bound(0, nbytes)
-    out["k3b"] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                      library_ms=None)
-    log(f"[time] K3b at ({t_count - 1}, {h}, {w}) (change_density's call): {_us(ms)} "
-        f"(device {_us(dev)}), plain {_us(plain_ms)}, bound {bound * 1e3:.4f} us ({nbytes} B)")
+    time_encode("k3", "K3 at 128x128", f, r, 1, 500)
+    time_encode(None, "K3 at 240x320", wide_f[0], wide_r[0], 1, 500)
+    time_encode("k3b", f"K3b at ({t_count - 1}, {h}, {w}) (change_density's call)",
+                frames[1:], frames[:-1], t_count - 1, 500)
 
     delta, _ = ck.delta_encode(f, r)
     dec = lambda: ck.delta_decode(delta, r)
@@ -1242,8 +1378,8 @@ def main() -> int:
     phase_eval_agrees(tracker_mod, _particles(torch, hm, truth[0], 16, device, seed=4),
                       frames, truth)
     launches = phase_main_path(torch, tracker_mod, rs, pu, frames, truth, device)
-    prof = phase_profile(torch, tracker_mod, frames, truth, device)
-    kernels = phase_timing(torch, rs, pu, inputs, device, k1_err, k2_err, launches, prof)
+    phase_profile(torch, tracker_mod, frames, truth, device)
+    kernels = phase_timing(torch, rs, pu, inputs, device, k1_err, k2_err, launches)
 
     for key in ck.launches:
         ck.launches[key] = 0
@@ -1252,9 +1388,13 @@ def main() -> int:
     launches.update({"k3": ck.launches["delta_encode"],
                      "k3b": ck.launches["delta_encode_batched"],
                      "k4": ck.launches["delta_decode"]})
-    log(f"[uplink] launches: K3 {launches['k3']}, K3b {launches['k3b']}, K4 {launches['k4']}")
+    mask_only = ck.launches["delta_encode_mask_only"]
+    log(f"[uplink] launches: K3 {launches['k3']}, K3b {launches['k3b']} ({mask_only} "
+        f"mask-only, by change_density), K4 {launches['k4']}")
     check(min(launches["k3"], launches["k3b"], launches["k4"]) > 0,
           "a kernel of the uplink path was not launched")
+    check(mask_only == launches["k3b"] == len(densities),
+          f"change_density launched K3b mask-only {mask_only} times, expected {len(densities)}")
     errs = phase_codec_kernels(torch, ck, frames, densities, device)
 
     # the quantized uplink and its entropy stage, on a clip with 2 mm noise
@@ -1264,14 +1404,19 @@ def main() -> int:
     torch.cuda.synchronize()
     for key in ck.launches:
         ck.launches[key] = 0
-    phase_quant_uplink(torch, ck, cref, wire, frames, lo, hi)
+    _, encoded = phase_quant_uplink(torch, ck, cref, wire, frames, lo, hi)
     phase_entropy(torch, ck, cref, {"noise 2 mm": frames, "noise-free": clean})
     torch.cuda.synchronize()
     quant = {"k3": ck.launches["delta_encode"], "k5": ck.launches["significant_bit_widths"],
              "k6": ck.launches["quantize_pack"], "k7": ck.launches["unpack_dequantize"]}
-    log(f"[quant] launches on the quantized uplink and entropy stage: K3 {quant['k3']}, "
-        f"K5 {quant['k5']}, K6 {quant['k6']}, K7 {quant['k7']}")
+    mask_only = ck.launches["delta_encode_mask_only"]
+    log(f"[quant] launches on the quantized uplink and entropy stage: K3 {quant['k3']} "
+        f"({mask_only} mask-only, by encode_frame), K5 {quant['k5']}, K6 {quant['k6']}, "
+        f"K7 {quant['k7']}")
     check(min(quant.values()) > 0, "a kernel of the quantized uplink path was not launched")
+    check(mask_only == len(encoded), f"encode_frame launched K3 mask-only {mask_only} times, "
+                                     f"expected {len(encoded)}")
+    phase_encode_masks(torch, ck, cref, wire, encoded, lo, hi)
     launches["k3"] += quant.pop("k3")
     launches.update(quant)
     errs.update(phase_quant_kernels(torch, ck, cref, frames, device))
@@ -1291,7 +1436,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[key], "max_abs_err": errs[key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "device_ms": t["device_ms"]})
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            **({"mask_only": t["mask_only"]} if "mask_only" in t else {})})
     check(len(kernels) == 12, f"{len(kernels)} kernels in the kernels line, expected 12")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

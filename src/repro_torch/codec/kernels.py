@@ -7,7 +7,8 @@ Replace the Pallas TPU kernels of ``repro/codec/kernels.py``:
   tile, a tile is changed when ``max |frame - ref| > threshold``; the
   delta is the XOR of the float32 bit patterns on changed tiles and 0
   elsewhere, and the mask is 1.0 on changed tiles.  The decode XORs the
-  delta back into the reference's bits.
+  delta back into the reference's bits.  ``_delta_mask`` returns the
+  mask alone, from a launch of K3 or K3b that does not write the delta.
 * K6 ``quantize_pack``, K6b ``quantize_pack_batched`` and K7
   ``unpack_dequantize`` (``csrc/quant_codec.cu``): ``bits``-wide codes,
   round half to even of a true float32 division, ``32 // bits`` codes
@@ -46,9 +47,12 @@ from repro_torch.codec.ref import DEFAULT_BLOCK_H, DEFAULT_BLOCK_W
 from repro_torch.codec.ref import delta_decode as delta_decode_plain
 from repro_torch.kernels import _build
 
-# Launches of each CUDA kernel since the counts were last set to 0.
+# Launches of each CUDA kernel since the counts were last set to 0;
+# "delta_encode_mask_only" counts the launches of K3 or K3b, already
+# counted under their own names, that wrote the mask alone.
 launches = {
-    "delta_encode": 0, "delta_encode_batched": 0, "delta_decode": 0,
+    "delta_encode": 0, "delta_encode_batched": 0, "delta_encode_mask_only": 0,
+    "delta_decode": 0,
     "significant_bit_widths": 0, "significant_bit_widths_batched": 0,
     "quantize_pack": 0, "quantize_pack_batched": 0, "unpack_dequantize": 0,
 }
@@ -97,14 +101,17 @@ def _check_tile(block_h: int, block_w: int) -> None:
         raise ValueError(f"tile ({block_h}, {block_w}) must be at least (1, 1)")
 
 
-def _encode_launch(frames, refs, threshold, block_h, block_w):
-    """One launch of the encode kernel over (B, H, W) planes."""
+def _encode_launch(frames, refs, threshold, block_h, block_w, write_delta=True):
+    """One launch of the encode kernel over (B, H, W) planes: (delta,
+    mask, launched); without ``write_delta`` the mask-only launch, and
+    delta is None."""
     device = frames.device
     b, h, w = frames.shape
     tiles = (-(-h // block_h), -(-w // block_w))
-    if b * h * w >= 2**31 or b * tiles[0] * tiles[1] >= 2**31:
+    if b * h * w >= 2**31:
         raise ValueError("the kernel indexes the planes with 32-bit ints")
-    delta = torch.empty((b, h, w), dtype=torch.int32, device=device)
+    delta = (torch.empty((b, h, w), dtype=torch.int32, device=device)
+             if write_delta else None)
     mask = torch.empty((b, *tiles), dtype=torch.float32, device=device)
     if b * h * w == 0:
         return delta, mask.zero_(), False
@@ -112,9 +119,11 @@ def _encode_launch(frames, refs, threshold, block_h, block_w):
     r = _build.kernel_input("ref", refs, device)
     with torch.cuda.device(device):
         err = _build.library().delta_encode_launch(
-            f.data_ptr(), r.data_ptr(), delta.data_ptr(), mask.data_ptr(),
-            b, h, w, block_h, block_w, threshold, _build.stream_handle(device))
+            f.data_ptr(), r.data_ptr(), None if delta is None else delta.data_ptr(),
+            mask.data_ptr(), b, h, w, block_h, block_w, threshold,
+            _build.stream_handle(device))
     _build.check(err, "delta_encode")
+    launches["delta_encode_mask_only"] += not write_delta
     return delta, mask, True
 
 
@@ -138,6 +147,32 @@ def delta_encode(
                                            block_h, block_w)
     launches["delta_encode"] += launched
     return delta[0], mask[0]
+
+
+def _delta_mask(
+    frames: torch.Tensor,  # (H, W) or (B, H, W) float
+    refs: torch.Tensor,  # like frames
+    *,
+    threshold: float = 0.0,
+    block_h: int = DEFAULT_BLOCK_H,
+    block_w: int = DEFAULT_BLOCK_W,
+) -> torch.Tensor:
+    """The change mask of ``delta_encode`` (a plane) or
+    ``delta_encode_batched`` (B planes), bit for bit, from a launch of
+    K3 or K3b that does not write the delta: for callers that read the
+    mask alone (``wire.encode_frame``, ``wire.change_density``)."""
+    batched = frames.dim() == 3
+    _check_pair(frames, refs, 3 if batched else 2)
+    _check_tile(block_h, block_w)
+    planes = (frames, refs) if batched else (frames[None], refs[None])
+    if not frames.is_cuda:
+        _, mask = delta_encode_plain(*planes, threshold=threshold, block_h=block_h,
+                                     block_w=block_w)
+    else:
+        _, mask, launched = _encode_launch(*planes, threshold, block_h, block_w,
+                                           write_delta=False)
+        launches["delta_encode_batched" if batched else "delta_encode"] += launched
+    return mask if batched else mask[0]
 
 
 def delta_encode_batched(

@@ -5,15 +5,15 @@ the CUDA kernels' wrappers; this module composes the wrappers into what
 the uplink runs:
 
 * the quantized-delta wire format, :func:`encode_frame` and
-  :func:`decode_frame`: on CUDA tensors K6, K7, K6, K7 and then K3 at
-  threshold ``step/2`` for the encode, K7 and a mask select for the
-  decode, the reference's composition; on CPU tensors the same
-  composition of the plain versions;
+  :func:`decode_frame`: on CUDA tensors K6, K7, K6, K7 and then K3's
+  mask-only launch at threshold ``step/2`` for the encode, K7 and a
+  mask select for the decode, the reference's composition; on CPU
+  tensors the same composition of the plain versions;
 * the sequenced stream machines of keyframes and XOR deltas with
   loss-driven resync (:class:`DeltaStreamEncoder`,
   :class:`DeltaStreamDecoder`; K3 and K4 on the card);
 * :func:`change_density`, the measured signal behind the codec model
-  (K3b on the card).
+  (K3b's mask-only launch on the card).
 """
 
 from __future__ import annotations
@@ -52,8 +52,8 @@ def encode_frame(
     ref_recon = kernels.unpack_dequantize(
         kernels.quantize_pack(ref, lo, hi, bits=bits), lo, hi, bits=bits)
     step = _ref.quant_step(lo, hi, bits)
-    _, mask = kernels.delta_encode(recon, ref_recon, threshold=step / 2,
-                                   block_h=block_h, block_w=block_w)
+    mask = kernels._delta_mask(recon, ref_recon, threshold=step / 2,
+                               block_h=block_h, block_w=block_w)
     return words, mask
 
 
@@ -214,12 +214,10 @@ def change_density(
 ) -> torch.Tensor:
     """Per-transition fraction of changed tiles, shape (T-1,): the
     measured signal behind the codec model's change density.  The T-1
-    transitions are encoded together (K3b for CUDA frames); the plane is
-    padded to whole tiles, as in the reference."""
+    transitions are encoded together (K3b's mask-only launch for CUDA
+    frames); the plane is padded to whole tiles, as in the reference."""
     if frames.shape[0] < 2:
         raise ValueError("change_density needs at least two frames")
-    _, mask = kernels.delta_encode_batched(
-        frames[1:], frames[:-1], threshold=threshold, block_h=block_h,
-        block_w=block_w,
-    )
+    mask = kernels._delta_mask(frames[1:], frames[:-1], threshold=threshold,
+                               block_h=block_h, block_w=block_w)
     return mask.mean(dim=(1, 2))

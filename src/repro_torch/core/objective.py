@@ -41,6 +41,14 @@ def sphere_depth(rays: torch.Tensor, spheres: torch.Tensor) -> torch.Tensor:
     hit maps to BACKGROUND_DEPTH.  The K=3 dot is written as products
     and sums, not a matrix product, so no TF32 path can round it.
     """
+    return _sphere_depth(rays, spheres, BACKGROUND_DEPTH)
+
+
+def _sphere_depth(rays: torch.Tensor, spheres: torch.Tensor, background: float) -> torch.Tensor:
+    """``sphere_depth`` with the miss depth as an argument, as the Pallas
+    render/score kernel's ``_score_tile`` takes it (the plain versions in
+    ``kernels/ref.py`` honour it).  ``torch.amin`` propagates a NaN
+    background as ``jnp.min`` does."""
     d2 = torch.sum(rays * rays, dim=-1)[:, None]  # (P, 1)
     c = spheres[..., None, :, :3]  # (..., 1, S, 3)
     r = spheres[..., None, :, 3]  # (..., 1, S)
@@ -50,7 +58,7 @@ def sphere_depth(rays: torch.Tensor, spheres: torch.Tensor) -> torch.Tensor:
     disc = dc * dc - d2 * c2r2
     t = (dc - torch.sqrt(torch.clamp(disc, min=0.0))) / d2
     hit = (disc >= 0.0) & (t > 1e-4)
-    t = torch.where(hit, t, BACKGROUND_DEPTH)
+    t = torch.where(hit, t, background)
     return torch.amin(t, dim=-1)
 
 

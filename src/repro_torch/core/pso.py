@@ -7,9 +7,12 @@ global best.  The objective is a black-box population evaluator
 
 The velocity/position update goes through the fused kernel
 ``kernels.pso_update`` (CUDA on the card, its plain version on the
-CPU).  A generation keeps everything on the device: the argmin, the
-best-of gathers and the restart scatter are tensor ops, so a run of
-generations never waits for the host.
+CPU); ``swarm_step(project_quaternion=True)`` has that launch
+renormalize the quaternion columns too, which the tracker's generation would otherwise
+run as a ``project_fn`` of several eager kernels.  A generation keeps
+everything on the device: the argmin, the best-of gathers and the
+restart scatter are tensor ops, so a run of generations never waits
+for the host.
 
 Randomness: the uniform draws come from a ``torch.Generator`` on the
 run's device, or from a ``draws`` argument — the parity tests feed the
@@ -137,12 +140,19 @@ def swarm_step(
     *,
     generator: Optional[torch.Generator] = None,
     draws: Optional[Sequence] = None,
+    project_quaternion: bool = False,
 ) -> SwarmState:
     """One PSO generation: velocity update, move, clamp, evaluate, rebest.
 
     ``draws`` = (r1, r2) or (r1, r2, u_restart) replaces the generator's
     draws: r1, r2 are (N, D) uniforms, u_restart (n_restart, D).
+    ``project_quaternion`` renormalizes the quaternion columns of the
+    moved positions inside the update's launch, as ``project_fn=
+    handmodel.normalize_configuration`` does; give one or the other.  Either way the restart's fresh rows come after
+    the projection and stay unprojected, as in the reference.
     """
+    if project_fn is not None and project_quaternion:
+        raise ValueError("give project_fn or project_quaternion, not both")
     n, d = state.positions.shape
     x = state.positions
     if draws is None:
@@ -150,11 +160,13 @@ def swarm_step(
         r2 = _uniform((n, d), x, generator)
     else:
         r1, r2 = _as_draw(draws[0], x), _as_draw(draws[1], x)
-    pos, vel = _pso_kernel.pso_update(
-        x, state.velocities, state.personal_best, state.global_best, r1, r2,
-        lo, hi, inertia=config.inertia, cognitive=config.cognitive,
-        social=config.social, velocity_clip=config.velocity_clip,
-    )
+    consts = dict(inertia=config.inertia, cognitive=config.cognitive,
+                  social=config.social, velocity_clip=config.velocity_clip)
+    args = (x, state.velocities, state.personal_best, state.global_best, r1, r2, lo, hi)
+    if project_quaternion:
+        pos, vel = _pso_kernel.pso_update_projected(*args, **consts)
+    else:
+        pos, vel = _pso_kernel.pso_update(*args, **consts)
     if project_fn is not None:
         pos = project_fn(pos)
 

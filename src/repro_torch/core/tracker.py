@@ -98,11 +98,13 @@ def stage_optimize(
     eval_fn: pso.EvalFn,
     generator: Optional[torch.Generator],
 ) -> pso.SwarmState:
-    """Stage 3: the PSO generations — the GPGPU-heavy step."""
+    """Stage 3: the PSO generations — the GPGPU-heavy step.  Each
+    generation's update renormalizes the quaternion in the same launch
+    (``handmodel.normalize_configuration`` fused into K2)."""
     for _ in range(cfg.pso.num_generations):
         state = pso.swarm_step(
-            state, lo, hi, eval_fn, cfg.pso,
-            project_fn=handmodel.normalize_configuration, generator=generator,
+            state, lo, hi, eval_fn, cfg.pso, generator=generator,
+            project_quaternion=True,
         )
     return state
 

@@ -15,11 +15,23 @@
 //
 // What bounds them on an H100: bytes (two float planes read, one int
 // plane written, a handful of integer and compare operations per word),
-// and at one 128x128 plane the launch itself.  The design:
-//   * One block per tile (8x128 by default, 4 KB of each input); its
-//     threads take neighbouring columns, so loads and stores coalesce.
-//     The block reads the tile once for the max and once more for the
-//     XOR; the second read hits L1/L2.
+// and at one 128x128 plane the launch itself.  The encode's design:
+//   * One block of 256 threads per tile (8x128 by default, 4 KB of each
+//     input).  Each thread loads its share of the tile once, into
+//     registers: on the vector path one float4 of the frame and one of
+//     the reference, both issued before either is used, and the XOR is
+//     stored from the same registers with one 16-byte store.  The vector
+//     path takes a launch whose width and tile width are multiples of 4
+//     and whose planes are 16-byte aligned (so every tile's rows start on
+//     a float4, the ragged last column of tiles included); any other
+//     launch takes the scalar path, 4 pixels a thread strided by the
+//     block's width.  A thread computes its row and column once per 4
+//     pixels on the vector path.  A tile of more than 1,024 pixels is
+//     read in chunks of 1,024, and a chunk after the first is read again
+//     for the XOR.
+//   * The tile max: nan_max over the thread's pixels, shuffles in each
+//     warp, and one shared-memory step in which every thread reads the 8
+//     warp maxima, so the store of the XOR needs no second barrier.
 //   * The max propagates NaN as jnp.max does (CUDA's fmaxf drops it):
 //     a tile holding a NaN compares NaN > threshold, which is false, so
 //     it stays unchanged.  |-0.0 - +0.0| is 0, so a tile that differs
@@ -29,14 +41,22 @@
 //     masks the ragged edge instead: a padded pixel has |0 - 0| = 0,
 //     which cannot raise a max of absolute values, so the masks are the
 //     same, and the delta is written straight at (H, W).
+//   * A mask-only launch (delta == nullptr) is the same kernel built
+//     without the XOR's store: callers that read only the mask
+//     (wire.encode_frame, wire.change_density) move two planes instead
+//     of three.
 //   * K3 is the B = 1 launch of the same kernel: row b of K3b equals K3
 //     on client b bit for bit.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 4 * kThreads;  // tile pixels a block holds in registers
 constexpr int kDecodeThreads = 256;
 
 // max(m, a) that keeps a NaN from either side, as jnp.max does.
@@ -44,15 +64,72 @@ __device__ __forceinline__ float nan_max(float m, float a) {
   return (a > m || a != a) ? a : m;
 }
 
+// Where this thread's 4 pixels of the tile chunk starting at pixel
+// `first` (in the tile's row-major order) lie in the plane; -1 for a
+// pixel past the tile's end.  Vector path: pixels first + 4t .. + 3, one
+// row (the tile's width is a multiple of 4), so only off[0] is set.
+// Scalar path: pixels first + t + j * kThreads.
+__device__ __forceinline__ void chunk_offsets(int first, int pixels, int cols, int width,
+                                              int row0, int col0, bool vector, int (&off)[4]) {
+  if (vector) {
+    const int k = first + 4 * static_cast<int>(threadIdx.x);
+    off[0] = k < pixels ? (row0 + k / cols) * width + col0 + k % cols : -1;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = first + static_cast<int>(threadIdx.x) + j * kThreads;
+      off[j] = k < pixels ? (row0 + k / cols) * width + col0 + k % cols : -1;
+    }
+  }
+}
+
+// The chunk's frame and reference values; a pixel past the tile reads
+// 0, 0, which cannot raise the max.
+__device__ __forceinline__ void load_chunk(const float* __restrict__ f,
+                                           const float* __restrict__ r, const int (&off)[4],
+                                           bool vector, float (&fv)[4], float (&rv)[4]) {
+  if (vector) {
+    float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f), c = a;
+    if (off[0] >= 0) {
+      a = *reinterpret_cast<const float4*>(f + off[0]);
+      c = *reinterpret_cast<const float4*>(r + off[0]);
+    }
+    fv[0] = a.x; fv[1] = a.y; fv[2] = a.z; fv[3] = a.w;
+    rv[0] = c.x; rv[1] = c.y; rv[2] = c.z; rv[3] = c.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      fv[j] = off[j] >= 0 ? f[off[j]] : 0.0f;
+      rv[j] = off[j] >= 0 ? r[off[j]] : 0.0f;
+    }
+  }
+}
+
+__device__ __forceinline__ void store_chunk(int* __restrict__ d, const int (&off)[4], bool vector,
+                                            bool changed, const float (&fv)[4],
+                                            const float (&rv)[4]) {
+  int x[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x[j] = changed ? (__float_as_int(fv[j]) ^ __float_as_int(rv[j])) : 0;
+  if (vector) {
+    if (off[0] >= 0) *reinterpret_cast<int4*>(d + off[0]) = make_int4(x[0], x[1], x[2], x[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (off[j] >= 0) d[off[j]] = x[j];
+    }
+  }
+}
+
+template <bool kWriteDelta>
 __global__ void __launch_bounds__(kThreads)
 delta_encode_kernel(const float* __restrict__ frames,  // (B, H, W)
                     const float* __restrict__ refs,    // (B, H, W)
-                    int* __restrict__ delta,           // (B, H, W)
+                    int* __restrict__ delta,           // (B, H, W); unused if !kWriteDelta
                     float* __restrict__ mask,          // (B, tiles_h, tiles_w)
                     int height, int width, int block_h, int block_w,
-                    int tiles_h, int tiles_w, float threshold) {
-  __shared__ float warp_max[kThreads / 32];
-  __shared__ int changed_s;
+                    int tiles_h, int tiles_w, float threshold, bool vector) {
+  __shared__ float warp_max[kWarps];
 
   const int tiles = tiles_h * tiles_w;
   const int b = blockIdx.x / tiles;
@@ -62,37 +139,43 @@ delta_encode_kernel(const float* __restrict__ frames,  // (B, H, W)
   const size_t plane = static_cast<size_t>(b) * height * width;
   const float* f = frames + plane;
   const float* r = refs + plane;
-  const int rows = min(block_h, height - row0);
   const int cols = min(block_w, width - col0);
-  const int pixels = rows * cols;
+  const int pixels = min(block_h, height - row0) * cols;
 
+  int off[4];
+  float fv[4], rv[4];
+  chunk_offsets(0, pixels, cols, width, row0, col0, vector, off);
+  load_chunk(f, r, off, vector, fv, rv);
   float m = 0.0f;  // every |f - r| is >= 0 or NaN
-  for (int k = threadIdx.x; k < pixels; k += kThreads) {
-    const size_t idx = static_cast<size_t>(row0 + k / cols) * width + col0 + k % cols;
-    m = nan_max(m, fabsf(f[idx] - r[idx]));
+#pragma unroll
+  for (int j = 0; j < 4; ++j) m = nan_max(m, fabsf(fv[j] - rv[j]));
+  for (int first = kChunk; first < pixels; first += kChunk) {  // tiles over 1,024 pixels
+    int o[4];
+    float fx[4], rx[4];
+    chunk_offsets(first, pixels, cols, width, row0, col0, vector, o);
+    load_chunk(f, r, o, vector, fx, rx);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) m = nan_max(m, fabsf(fx[j] - rx[j]));
   }
 
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    m = nan_max(m, __shfl_down_sync(0xffffffffu, m, off));
-  }
-  if (lane == 0) warp_max[warp] = m;
+  for (int o = 16; o > 0; o >>= 1) m = nan_max(m, __shfl_down_sync(0xffffffffu, m, o));
+  if (lane == 0) warp_max[threadIdx.x >> 5] = m;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kThreads / 32; ++w) m = nan_max(m, warp_max[w]);
-    const bool changed = m > threshold;  // false for NaN
-    changed_s = changed;
-    mask[static_cast<size_t>(b) * tiles + tile] = changed ? 1.0f : 0.0f;
-  }
-  __syncthreads();
+  m = warp_max[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) m = nan_max(m, warp_max[w]);
+  const bool changed = m > threshold;  // false for NaN
+  if (threadIdx.x == 0) mask[static_cast<size_t>(b) * tiles + tile] = changed ? 1.0f : 0.0f;
+  if (!kWriteDelta) return;
 
-  const bool changed = changed_s;
   int* d = delta + plane;
-  for (int k = threadIdx.x; k < pixels; k += kThreads) {
-    const size_t idx = static_cast<size_t>(row0 + k / cols) * width + col0 + k % cols;
-    d[idx] = changed ? (__float_as_int(f[idx]) ^ __float_as_int(r[idx])) : 0;
+  store_chunk(d, off, vector, changed, fv, rv);
+  for (int first = kChunk; first < pixels; first += kChunk) {
+    chunk_offsets(first, pixels, cols, width, row0, col0, vector, off);
+    load_chunk(f, r, off, vector, fv, rv);
+    store_chunk(d, off, vector, changed, fv, rv);
   }
 }
 
@@ -107,17 +190,29 @@ delta_decode_kernel(const int* __restrict__ delta, const float* __restrict__ ref
 
 // K3 (num_clients = 1) and K3b on `stream`.  The tile grid is
 // ceil(height / block_h) x ceil(width / block_w) per client; the caller
-// keeps num_clients * tiles below 2^31.  Returns cudaGetLastError().
+// keeps num_clients * height * width below 2^31.  delta == nullptr
+// launches the mask-only kernel.  Returns cudaGetLastError().
 extern "C" int delta_encode_launch(const float* frames, const float* refs,
                                    int* delta, float* mask, int num_clients,
                                    int height, int width, int block_h,
                                    int block_w, float threshold, void* stream) {
   const int tiles_h = (height + block_h - 1) / block_h;
   const int tiles_w = (width + block_w - 1) / block_w;
-  delta_encode_kernel<<<num_clients * tiles_h * tiles_w, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      frames, refs, delta, mask, height, width, block_h, block_w, tiles_h,
-      tiles_w, threshold);
+  const uintptr_t addresses = reinterpret_cast<uintptr_t>(frames) |
+                              reinterpret_cast<uintptr_t>(refs) |
+                              reinterpret_cast<uintptr_t>(delta);
+  const bool vector = width % 4 == 0 && block_w % 4 == 0 && (addresses & 15) == 0;
+  const dim3 grid(num_clients * tiles_h * tiles_w);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (delta != nullptr) {
+    delta_encode_kernel<true><<<grid, kThreads, 0, s>>>(
+        frames, refs, delta, mask, height, width, block_h, block_w, tiles_h, tiles_w,
+        threshold, vector);
+  } else {
+    delta_encode_kernel<false><<<grid, kThreads, 0, s>>>(
+        frames, refs, delta, mask, height, width, block_h, block_w, tiles_h, tiles_w,
+        threshold, vector);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -24,11 +24,19 @@
 // microsecond of the card's fp32 rate.  On a dense mask it is the fp32
 // work of the ~50M ray/sphere tests, with the IEEE sqrt and division of
 // every hit.  The design:
-//   * Only pixels whose term can be non-zero are scored.  Rendered depth
-//     is always finite, so a pixel with mask == 0 and a depth that is not
-//     NaN adds exactly +0; the kernel keeps pixel p iff
+//   * Only pixels whose term can be non-zero are scored.  With a finite
+//     background and a finite clamp_t, rendered depth is finite and the
+//     clamped term is finite, so a pixel with mask == 0 and a depth that
+//     is not NaN adds exactly +0; the kernel keeps pixel p iff
 //     mask[p] != 0 || isnan(depth[p]) and skips every other pixel without
-//     testing a sphere.  This is exact, for any float mask.
+//     testing a sphere.  This is exact, for any float mask.  With a
+//     background or a clamp_t that is not finite a masked-out term can be
+//     NaN (NaN background, inf - inf, inf * 0), as in the Pallas kernel,
+//     so then every pixel is kept.
+//   * A NaN background makes a pixel's depth NaN wherever a sphere
+//     misses (jnp.min propagates it).  The sphere loop keeps fminf and
+//     runs with -inf as the miss depth instead; a hit is > 1e-4, so a
+//     rendered -inf marks a miss and becomes NaN before the term.
 //   * The compaction happens in the kernel, not with host-synchronizing
 //     PyTorch indexing.  The pixels are cut into 256-pixel segments dealt
 //     round-robin to the 8 blocks of a (client, particle), so a band of
@@ -94,6 +102,8 @@ constexpr int kListCapacity = 2 * kPassPixels;  // kept-pixel indices held
 constexpr int kWide = 4;  // pixels per thread on a long list
 constexpr unsigned kFullMask = 0xffffffffu;
 
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
 // min(a, b) that keeps a NaN from either side, as jnp.minimum does
 // (CUDA's fminf drops it).
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -120,11 +130,11 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays, int p) {
 }
 
 // min(dmin, t) for one ray and one staged sphere: t is the near root on
-// a hit (disc >= 0 and t > 1e-4), else background.  Never NaN.
-__device__ __forceinline__ float render(float dmin, const Ray& r, float4 c, float background) {
+// a hit (disc >= 0 and t > 1e-4), else miss.  Never NaN.
+__device__ __forceinline__ float render(float dmin, const Ray& r, float4 c, float miss) {
   const float dc = __fmaf_rn(r.z, c.z, __fmaf_rn(r.y, c.y, __fmul_rn(r.x, c.x)));
   const float disc = __fmaf_rn(dc, dc, -__fmul_rn(r.d2, c.w));
-  float t = background;
+  float t = miss;
   if (disc >= 0.0f) {
     const float t_hit = __fdiv_rn(__fsub_rn(dc, __fsqrt_rn(disc)), r.d2);
     if (t_hit > 1e-4f) t = t_hit;
@@ -132,7 +142,11 @@ __device__ __forceinline__ float render(float dmin, const Ray& r, float4 c, floa
   return fminf(dmin, t);
 }
 
-__device__ __forceinline__ float term(float d_h, float d_o, float m, float clamp_t) {
+// The term of one pixel.  nan_background: the sphere loop ran with -inf
+// as the miss depth, and a missed sphere makes the depth NaN.
+__device__ __forceinline__ float term(float d_h, float d_o, float m, float clamp_t,
+                                      bool nan_background) {
+  if (nan_background && d_h == neg_inf()) d_h = __int_as_float(0x7fc00000);
   return __fmul_rn(nan_min(fabsf(__fsub_rn(d_h, d_o)), clamp_t), m);
 }
 
@@ -143,7 +157,7 @@ __device__ __forceinline__ void score_wide(const float4* __restrict__ sph, int n
                                            const float* __restrict__ rays,
                                            const float* __restrict__ depth,
                                            const float* __restrict__ mask, float clamp_t,
-                                           float background, float& acc) {
+                                           float miss, bool nan_background, float& acc) {
   if (base + static_cast<int>(threadIdx.x & ~31u) >= count) return;  // warp idle
   int idx[kWide];
   Ray r[kWide];
@@ -159,11 +173,11 @@ __device__ __forceinline__ void score_wide(const float4* __restrict__ sph, int n
   for (int j = 0; j < num_spheres; ++j) {
     const float4 c = sph[j];
 #pragma unroll
-    for (int k = 0; k < kWide; ++k) dmin[k] = render(dmin[k], r[k], c, background);
+    for (int k = 0; k < kWide; ++k) dmin[k] = render(dmin[k], r[k], c, miss);
   }
 #pragma unroll
   for (int k = 0; k < kWide; ++k) {
-    if (idx[k] >= 0) acc += term(dmin[k], depth[idx[k]], mask[idx[k]], clamp_t);
+    if (idx[k] >= 0) acc += term(dmin[k], depth[idx[k]], mask[idx[k]], clamp_t, nan_background);
   }
 }
 
@@ -176,7 +190,7 @@ __device__ __forceinline__ void score_split(const float4* __restrict__ sph, int 
                                             const float* __restrict__ rays,
                                             const float* __restrict__ depth,
                                             const float* __restrict__ mask, float clamp_t,
-                                            float background, float& acc) {
+                                            float miss, bool nan_background, float& acc) {
   if (base + static_cast<int>(threadIdx.x & ~31u) / L >= count) return;  // warp idle
   const int sub = threadIdx.x % L;
   const int i = base + static_cast<int>(threadIdx.x) / L;
@@ -184,10 +198,10 @@ __device__ __forceinline__ void score_split(const float4* __restrict__ sph, int 
   const Ray r = load_ray(rays, idx);
   float dmin = __int_as_float(0x7f800000);
 #pragma unroll 4
-  for (int j = sub; j < num_spheres; j += L) dmin = render(dmin, r, sph[j], background);
+  for (int j = sub; j < num_spheres; j += L) dmin = render(dmin, r, sph[j], miss);
 #pragma unroll
   for (int o = L / 2; o > 0; o >>= 1) dmin = fminf(dmin, __shfl_xor_sync(kFullMask, dmin, o));
-  if (idx >= 0 && sub == 0) acc += term(dmin, depth[idx], mask[idx], clamp_t);
+  if (idx >= 0 && sub == 0) acc += term(dmin, depth[idx], mask[idx], clamp_t, nan_background);
 }
 
 // Scores the list's count pixels.  The split depends only on count, so a
@@ -197,23 +211,24 @@ __device__ __forceinline__ void score_list(const float4* __restrict__ sph, int n
                                            const float* __restrict__ rays,
                                            const float* __restrict__ depth,
                                            const float* __restrict__ mask, float clamp_t,
-                                           float background, float& acc) {
+                                           float miss, bool nan_background, float& acc) {
   int base = 0;
   while (count - base > kThreads) {
-    score_wide(sph, num_spheres, list, count, base, rays, depth, mask, clamp_t, background, acc);
+    score_wide(sph, num_spheres, list, count, base, rays, depth, mask, clamp_t, miss,
+               nan_background, acc);
     base += kWide * kThreads;
   }
   if (base >= count) return;
   const int left = count - base;
   if (left * 4 <= kThreads) {
-    score_split<4>(sph, num_spheres, list, count, base, rays, depth, mask, clamp_t, background,
-                   acc);
+    score_split<4>(sph, num_spheres, list, count, base, rays, depth, mask, clamp_t, miss,
+                   nan_background, acc);
   } else if (left * 2 <= kThreads) {
-    score_split<2>(sph, num_spheres, list, count, base, rays, depth, mask, clamp_t, background,
-                   acc);
+    score_split<2>(sph, num_spheres, list, count, base, rays, depth, mask, clamp_t, miss,
+                   nan_background, acc);
   } else {
-    score_split<1>(sph, num_spheres, list, count, base, rays, depth, mask, clamp_t, background,
-                   acc);
+    score_split<1>(sph, num_spheres, list, count, base, rays, depth, mask, clamp_t, miss,
+                   nan_background, acc);
   }
 }
 
@@ -275,6 +290,10 @@ render_score_kernel(const float* __restrict__ spheres,  // (B, N, S, 4)
       segments > rank ? (segments - rank + kClusterBlocks - 1) / kClusterBlocks : 0;
   const int slot = threadIdx.x / (kSegment / 4);
   const int offset = 4 * (threadIdx.x % (kSegment / 4));
+  // The skip of masked-out pixels is exact only while both are finite.
+  const bool keep_all = !(isfinite(background) && isfinite(clamp_t));
+  const bool nan_background = background != background;
+  const float miss = nan_background ? neg_inf() : background;
 
   float acc = 0.0f;
   int count = 0;  // pixels in the list; the same in every thread
@@ -296,7 +315,8 @@ render_score_kernel(const float* __restrict__ spheres,  // (B, N, S, 4)
       unsigned under = 0, warp_kept = 0;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        keep[s][k] = m[s][k] != 0.0f || d[s][k] != d[s][k];  // a missing pixel reads 0, 0
+        keep[s][k] = keep_all ? p0[s] + k < num_pixels
+                              : m[s][k] != 0.0f || d[s][k] != d[s][k];  // a missing pixel reads 0, 0
         const unsigned votes = __ballot_sync(kFullMask, keep[s][k]);
         under += __popc(votes & lanes_below);
         warp_kept += __popc(votes);
@@ -323,7 +343,8 @@ render_score_kernel(const float* __restrict__ spheres,  // (B, N, S, 4)
     __syncthreads();  // the list is written; warp_counts may be reused
     const bool last = first + kSubs * kSegmentsPerSub >= own_segments;
     if (count > kListCapacity - kPassPixels || (last && count > 0)) {
-      score_list(sph, num_spheres, list, count, rays, depth, mask, clamp_t, background, acc);
+      score_list(sph, num_spheres, list, count, rays, depth, mask, clamp_t, miss,
+                 nan_background, acc);
       count = 0;
       __syncthreads();  // the list may be refilled
     }

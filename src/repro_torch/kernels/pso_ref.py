@@ -1,9 +1,14 @@
 """Plain PyTorch oracles for the pso_update kernels K2 and K2b (mirror
-the swarm update of ``repro.core.pso.swarm_step``)."""
+the swarm update of ``repro.core.pso.swarm_step``), and for their
+launches with the quaternion projection (the update followed by
+``handmodel.normalize_configuration``, as the tracker's generation
+runs it)."""
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import handmodel
 
 
 def pso_update(
@@ -44,3 +49,24 @@ def pso_update_batched(
     vel = torch.minimum(torch.maximum(vel, -vmax), vmax)
     pos = torch.minimum(torch.maximum(x + vel, lo), hi)
     return pos, vel
+
+
+def pso_update_projected(
+    x, v, pbest, gbest, r1, r2, lo, hi,
+    *, inertia: float, cognitive: float, social: float, velocity_clip: float,
+):
+    """``pso_update`` followed by ``handmodel.normalize_configuration`` of x'."""
+    pos, vel = pso_update(x, v, pbest, gbest, r1, r2, lo, hi, inertia=inertia,
+                          cognitive=cognitive, social=social, velocity_clip=velocity_clip)
+    return handmodel.normalize_configuration(pos), vel
+
+
+def pso_update_projected_batched(
+    x, v, pbest, gbest, r1, r2, lo, hi,
+    *, inertia: float, cognitive: float, social: float, velocity_clip: float,
+):
+    """``pso_update_batched`` followed by ``handmodel.normalize_configuration`` of x'."""
+    pos, vel = pso_update_batched(x, v, pbest, gbest, r1, r2, lo, hi, inertia=inertia,
+                                  cognitive=cognitive, social=social,
+                                  velocity_clip=velocity_clip)
+    return handmodel.normalize_configuration(pos), vel

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.objective import CLAMP_T, sphere_depth
+from repro_torch.core.camera import BACKGROUND_DEPTH
+from repro_torch.core.objective import CLAMP_T, _sphere_depth
 
 
 def render_score_sums(
@@ -20,9 +21,11 @@ def render_score_sums(
     mask: torch.Tensor,  # (P,)
     *,
     clamp_t: float = CLAMP_T,
+    background: float = BACKGROUND_DEPTH,
 ) -> torch.Tensor:
-    """Unnormalized masked clamped-L1 sums per particle, shape (N,)."""
-    d_h = sphere_depth(rays.float(), spheres.float())  # (N, P)
+    """Unnormalized masked clamped-L1 sums per particle, shape (N,).  A
+    ray that hits no sphere renders ``background``."""
+    d_h = _sphere_depth(rays.float(), spheres.float(), background)  # (N, P)
     err = torch.clamp(torch.abs(d_h - depth_obs.float()), max=clamp_t)
     return torch.sum(err * mask.float(), dim=-1)
 
@@ -34,10 +37,11 @@ def render_score_sums_batched(
     mask: torch.Tensor,  # (B, P)
     *,
     clamp_t: float = CLAMP_T,
+    background: float = BACKGROUND_DEPTH,
 ) -> torch.Tensor:
     """Unnormalized sums per (client, particle), shape (B, N): each
     client's row is ``render_score_sums`` on that client alone."""
-    return torch.stack([render_score_sums(*args, clamp_t=clamp_t)
+    return torch.stack([render_score_sums(*args, clamp_t=clamp_t, background=background)
                         for args in zip(spheres, rays, depth_obs, mask)])
 
 

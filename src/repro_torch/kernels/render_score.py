@@ -12,9 +12,11 @@ The kernel is ``csrc/render_score.cu``, which says what bounds it on an
 H100 (the launch and the mask scan at the tracker's masks, fp32
 operations on a dense one) and how its design answers that: it scores
 only the pixels whose term can be non-zero (mask != 0, or a NaN depth,
-which makes the sum NaN as in the reference), and closes each sum in
-one launch inside a cluster of 8 blocks.  K1 is its B = 1 launch, so
-each client's row of K1b equals K1 on that client bit for bit.  For a
+which makes the sum NaN as in the reference; every pixel when
+``background`` or ``clamp_t`` is not finite, since a masked-out term
+can then be NaN), and closes each sum in one launch inside a cluster of
+8 blocks.  K1 is its B = 1 launch, so each client's row of K1b equals
+K1 on that client bit for bit.  For a
 CUDA tensor a wrapper launches it, or raises; for a CPU tensor it runs
 the plain version, ``render_score_sums_plain`` or
 ``render_score_sums_batched_plain`` (the oracles in ``kernels/ref.py``).
@@ -46,7 +48,7 @@ MAX_SPHERES = 2000
 MAX_GRID_YZ = 65535
 
 
-def _launch(spheres, rays, depth_obs, mask, clamp_t):
+def _launch(spheres, rays, depth_obs, mask, clamp_t, background):
     """One launch over (B, N, S, 4), (B, P, 3), (B, P), (B, P) inputs;
     returns the (B, N) sums."""
     device = spheres.device
@@ -73,7 +75,7 @@ def _launch(spheres, rays, depth_obs, mask, clamp_t):
     with torch.cuda.device(device):
         err = _build.library().render_score_sums_launch(
             *(t.data_ptr() for t in args), out.data_ptr(),
-            b, n, s, p, clamp_t, BACKGROUND_DEPTH, _build.stream_handle(device))
+            b, n, s, p, clamp_t, background, _build.stream_handle(device))
     _build.check(err, "render_score_sums")
     return out, True
 
@@ -85,21 +87,24 @@ def render_score_sums(
     mask: torch.Tensor,  # (P,) float or bool
     *,
     clamp_t: float = CLAMP_T,
+    background: float = BACKGROUND_DEPTH,
 ) -> torch.Tensor:
     """Unnormalized masked score sums per particle, shape (N,), float32.
+    A ray that hits no sphere renders ``background``.
 
     Any N and P: the kernel masks the ragged pixel edge itself
     (``ops.render_score`` pads as the reference does before it calls
     this).
     """
     if not spheres.is_cuda:
-        return render_score_sums_plain(spheres, rays, depth_obs, mask, clamp_t=clamp_t)
+        return render_score_sums_plain(spheres, rays, depth_obs, mask, clamp_t=clamp_t,
+                                       background=background)
     global launches
     if spheres.dim() != 3 or rays.dim() != 2:
         raise ValueError(f"shapes spheres {tuple(spheres.shape)}, rays "
                          f"{tuple(rays.shape)}: expected (N, S, 4), (P, 3)")
     out, launched = _launch(spheres[None], rays[None], depth_obs[None], mask[None],
-                            clamp_t)
+                            clamp_t, background)
     launches += launched
     return out[0]
 
@@ -111,16 +116,17 @@ def render_score_sums_batched(
     mask: torch.Tensor,  # (B, P) float or bool
     *,
     clamp_t: float = CLAMP_T,
+    background: float = BACKGROUND_DEPTH,
 ) -> torch.Tensor:
     """B clients' populations scored in one launch: unnormalized sums,
     shape (B, N), float32.  Any N and P, as ``render_score_sums``."""
     if not spheres.is_cuda:
         return render_score_sums_batched_plain(spheres, rays, depth_obs, mask,
-                                               clamp_t=clamp_t)
+                                               clamp_t=clamp_t, background=background)
     global launches_batched
     if spheres.dim() != 4:
         raise ValueError(f"spheres has shape {tuple(spheres.shape)}, "
                          "expected (B, N, S, 4)")
-    out, launched = _launch(spheres, rays, depth_obs, mask, clamp_t)
+    out, launched = _launch(spheres, rays, depth_obs, mask, clamp_t, background)
     launches_batched += launched
     return out

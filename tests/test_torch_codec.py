@@ -238,3 +238,26 @@ def test_stream_outputs_are_copies():
         if pkt.kind == "key":
             pkt.payload.add_(1.0)
     assert dec.decoded == len(frames)
+
+
+@pytest.mark.parametrize("threshold", [0.0, 0.01])
+@pytest.mark.parametrize("h,w", [(128, 128), (240, 320)])
+def test_mask_only_launch_matches_delta_encode_mask(h, w, threshold):
+    """K3's and K3b's mask-only wrapper gives ``delta_encode``'s and
+    ``delta_encode_batched``'s mask bit for bit, and the reference's,
+    with the NaN tile and the signed-zero tile unchanged."""
+    pairs = [_pair(h, w, seed=h + s) for s in range(2)]
+    frames = np.stack([p[0] for p in pairs])
+    refs = np.stack([p[1] for p in pairs])
+    tf, tr = torch.from_numpy(frames), torch.from_numpy(refs)
+    mask = tck._delta_mask(tf[0], tr[0], threshold=threshold)
+    _, full = tck.delta_encode(tf[0], tr[0], threshold=threshold)
+    _, jm = jck.delta_encode(jnp.asarray(frames[0]), jnp.asarray(refs[0]), threshold=threshold)
+    assert mask.dtype == torch.float32 and mask.shape == full.shape
+    assert np.array_equal(_bits(mask.numpy()), _bits(full.numpy()))
+    assert np.array_equal(mask.numpy(), np.asarray(jm))
+    assert mask[0, 0] == 0 and mask[1, 0] == 0 and mask[-1, -1] == 1
+    masks = tck._delta_mask(tf, tr, threshold=threshold)
+    _, full_b = tck.delta_encode_batched(tf, tr, threshold=threshold)
+    assert np.array_equal(_bits(masks.numpy()), _bits(full_b.numpy()))
+    assert torch.equal(masks[0], mask)

@@ -70,10 +70,12 @@ def _update_inputs(n, d, device, seed=0):
             for a in (x, v, pb, pb[0], r1, r2, lo, hi)]
 
 
-def _assert_scores_close(got, want, mask):
+def _assert_scores_close(got, want, mask, flip=CLAMP_T, equal_nan=False):
+    """Within rtol 2e-5 plus one silhouette flip (``flip``: the most one
+    pixel's term can change) on the normalized score."""
     denom = max(float(mask.sum()), 1.0)
     torch.testing.assert_close(got / denom, want / denom, rtol=2e-5,
-                               atol=CLAMP_T / denom + 1e-6)
+                               atol=flip / denom + 1e-6, equal_nan=equal_nan)
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -94,6 +96,13 @@ def _batched_update_inputs(b, n, d, device, per_swarm_bounds):
     if not per_swarm_bounds:
         lo, hi = lo[0], hi[0]
     return [x, v, pb, gb, r1, r2, lo, hi]
+
+
+# K3's tiles: the default 8x128 (1,024 pixels, one chunk a block), 32x64
+# (2,048 pixels on the vector path where the width allows) and 9x130
+# (1,170 pixels, always the scalar path): the last two run the kernel's
+# loops over a tile's later chunks.
+TILES = [(8, 128), (32, 64), (9, 130)]
 
 
 def _codec_pair(h, w, device, b=None, seed=0):
@@ -335,24 +344,30 @@ def test_pso_update_batched_kernel_matches_plain_and_k2(cuda, per_swarm_bounds):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("block", TILES)
 @pytest.mark.parametrize("threshold", [0.0, 0.01])
-@pytest.mark.parametrize("h,w", [(128, 128), (240, 320)])
-def test_delta_codec_kernels_match_plain(cuda, h, w, threshold):
+@pytest.mark.parametrize("h,w", [(128, 128), (240, 320), (240, 322)])
+def test_delta_codec_kernels_match_plain(cuda, h, w, threshold, block):
     """K3, K3b (B = 4) and K4 bit for bit against their plain versions on
-    the CPU, with the NaN and signed-zero tiles; K3b's rows equal K3."""
+    the CPU, with the NaN and signed-zero tiles; K3b's rows equal K3.  A
+    width that is not a multiple of 4 takes the kernel's scalar path; the
+    tiles of over 1,024 pixels its chunked loops."""
     frames, refs = _codec_pair(h, w, cuda, b=4, seed=h)
+    tile = dict(threshold=threshold, block_h=block[0], block_w=block[1])
     before = dict(ck.launches)
-    d, m = ck.delta_encode_batched(frames, refs, threshold=threshold)
-    pd, pm = ck.delta_encode_plain(frames.cpu(), refs.cpu(), threshold=threshold)
+    d, m = ck.delta_encode_batched(frames, refs, **tile)
+    pd, pm = ck.delta_encode_plain(frames.cpu(), refs.cpu(), **tile)
     assert torch.equal(d.cpu(), pd) and torch.equal(m.cpu(), pm)
-    assert m.dtype == torch.float32 and m.shape == (4, -(-h // 8), -(-w // 128))
+    assert m.dtype == torch.float32 and m.shape == (4, -(-h // block[0]), -(-w // block[1]))
     for i in range(4):
-        di, mi = ck.delta_encode(frames[i], refs[i], threshold=threshold)
+        di, mi = ck.delta_encode(frames[i], refs[i], **tile)
         assert torch.equal(di, d[i]) and torch.equal(mi, m[i])
         out = ck.delta_decode(di, refs[i])
         want = ck.delta_decode_plain(di.cpu(), refs[i].cpu())
         assert torch.equal(out.cpu().view(torch.int32), want.view(torch.int32))
-    assert m[0, 0, 0] == 0 and m[0, 1, 0] == 0 and m[0, -1, -1] == 1
+    assert m[0, 0, 0] == 0 and m[0, -1, -1] == 1
+    if block == (8, 128):
+        assert m[0, 1, 0] == 0
     delta_keys = ("delta_encode", "delta_encode_batched", "delta_decode")
     assert {k: ck.launches[k] for k in delta_keys} == {
         "delta_encode": before["delta_encode"] + 4,
@@ -431,3 +446,105 @@ def test_quantized_frames_on_the_card_match_the_cpu(cuda):
         out = wire.decode_frame(words, mask, x[0], 0.0, 10.0, bits=bits)
         want = wire.decode_frame(cw, cm, x[0].cpu(), 0.0, 10.0, bits=bits)
         assert torch.equal(out.cpu().view(torch.int32), want.view(torch.int32))
+
+
+BACKGROUNDS = [10.0, 0.55, float("inf"), float("nan")]
+CLAMPS = [CLAMP_T, float("inf")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clamp_t", CLAMPS)
+@pytest.mark.parametrize("background", BACKGROUNDS)
+def test_render_score_kernels_honour_background_and_clamp(cuda, background, clamp_t):
+    """K1 (64 particles on a 64x64 camera, P cut to a ragged length) and
+    K1b (3 clients) against their plain versions at a given background
+    and clamp: a finite pair keeps the kernel's skip of masked-out pixels;
+    a NaN background, an infinite background or clamp scores every pixel,
+    so the NaN sums of the plain version (NaN background, inf - inf,
+    inf * 0) come out of the kernels too.  A flip between a hit (under 1 m
+    here) and the background changes one term by at most
+    min(clamp_t, |background| + 1).  Each K1b row equals K1 bit for bit."""
+    cam = crop_camera(Camera(), 2)
+    rows = [_score_inputs(64, cuda, cam) for _ in range(3)]
+    p = rows[0][1].shape[0] - 77
+    spheres, rays, depth, mask = (torch.stack(a) for a in zip(*rows))
+    for i in range(3):
+        spheres[i, :, :, 2] += 0.01 * i
+        mask[i, : 200 * i] = 0.0
+    args = (spheres, rays[:, :p].contiguous(), depth[:, :p].contiguous(),
+            mask[:, :p].contiguous())
+    kw = dict(background=background, clamp_t=clamp_t)
+    flip = min(clamp_t, abs(background) + 1.0)
+    before = (rs.launches, rs.launches_batched)
+    got = rs.render_score_sums(*(a[0] for a in args), **kw)
+    batched = rs.render_score_sums_batched(*args, **kw)
+    assert (rs.launches, rs.launches_batched) == (before[0] + 1, before[1] + 1)
+    want = rs.render_score_sums_batched_plain(*args, **kw)
+    assert _bit_equal(batched[0], got)
+    for i in range(3):
+        assert _bit_equal(batched[i], rs.render_score_sums(*(a[i] for a in args), **kw))
+        assert bool((torch.isnan(batched[i]) == torch.isnan(want[i])).all())
+        _assert_scores_close(batched[i], want[i], args[3][i], flip, equal_nan=True)
+    all_nan = background != background or (background == float("inf")
+                                            and clamp_t == float("inf"))
+    assert bool(torch.isnan(want).all()) == all_nan and bool(torch.isfinite(want).all()) != all_nan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_swarm_bounds", [False, True])
+@pytest.mark.parametrize("n", [64, 13])
+def test_pso_update_projected_kernels_match_plain(cuda, n, per_swarm_bounds):
+    """The fused K2b (B = 4) and K2 (update + quaternion projection in one
+    launch) against their plain versions at rtol = atol = 1e-6; each K2b
+    row equals the fused K2 on that swarm bit for bit; outside the
+    quaternion columns, and for the velocities, the fused launch equals
+    the unprojected one bit for bit."""
+    args = _batched_update_inputs(4, n, 27, cuda, per_swarm_bounds)
+    args[0][..., 3:7] *= 2.0  # off the unit sphere, as the update leaves it
+    before = (pu.launches, pu.launches_batched, pu.launches_projected)
+    kx, kv = pu.pso_update_projected_batched(*args, **CONSTS)
+    px, pv = pu.pso_update_projected_batched_plain(*args, **CONSTS)
+    torch.testing.assert_close(kx, px, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(kv, pv, rtol=1e-6, atol=1e-6)
+    lo, hi = (torch.broadcast_to(t, (4, 27)) for t in args[6:])
+    for i in range(4):
+        swarm = [a[i] for a in args[:6]] + [lo[i], hi[i]]
+        sx, sv = pu.pso_update_projected(*swarm, **CONSTS)
+        assert _bit_equal(kx[i], sx) and _bit_equal(kv[i], sv)
+        qx, qv = pu.pso_update_projected_plain(*swarm, **CONSTS)
+        torch.testing.assert_close(sx, qx, rtol=1e-6, atol=1e-6)
+    assert (pu.launches, pu.launches_batched, pu.launches_projected) == (
+        before[0] + 4, before[1] + 1, before[2] + 5)
+    ux, uv = pu.pso_update_batched(*args, **CONSTS)
+    keep = torch.ones(27, dtype=torch.bool, device=cuda)
+    keep[3:7] = False
+    assert _bit_equal(kv, uv) and _bit_equal(kx[..., keep], ux[..., keep])
+    norms = torch.linalg.vector_norm(kx[..., 3:7], dim=-1)
+    torch.testing.assert_close(norms, torch.ones_like(norms), rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", TILES)
+@pytest.mark.parametrize("threshold", [0.0, 0.01])
+@pytest.mark.parametrize("h,w", [(128, 128), (240, 320), (240, 322)])
+def test_delta_mask_launch_matches_full_launch(cuda, h, w, threshold, block):
+    """K3's and K3b's mask-only launch gives the full launch's mask bit
+    for bit (and the plain version's), on aligned planes, on planes one
+    float off 16-byte alignment (the scalar path), at a width that is not
+    a multiple of 4 and on tiles of over 1,024 pixels; it is counted as a
+    launch of K3 or K3b."""
+    frames, refs = _codec_pair(h, w, cuda, b=4, seed=h + w)
+    tile = dict(threshold=threshold, block_h=block[0], block_w=block[1])
+    flat_f, flat_r = frames.reshape(-1), refs.reshape(-1)
+    shifted = (flat_f[1:1 + h * w].view(h, w), flat_r[1:1 + h * w].view(h, w))
+    for f, r in ((frames, refs), (frames[2], refs[2]), shifted):
+        before = dict(ck.launches)
+        mask = ck._delta_mask(f, r, **tile)
+        key = "delta_encode_batched" if f.dim() == 3 else "delta_encode"
+        _, full = (ck.delta_encode_batched if f.dim() == 3 else ck.delta_encode)(f, r, **tile)
+        assert ck.launches[key] == before[key] + 2
+        assert ck.launches["delta_encode_mask_only"] == before["delta_encode_mask_only"] + 1
+        assert _bit_equal(mask, full)
+        planes = (f.cpu(), r.cpu()) if f.dim() == 3 else (f.cpu()[None], r.cpu()[None])
+        _, plain = ck.delta_encode_plain(*planes, **tile)
+        assert _bit_equal(mask.cpu(), plain if f.dim() == 3 else plain[0])

@@ -146,3 +146,70 @@ def test_run_chunked_equals_run_and_converges():
     assert torch.equal(best, best_c) and torch.equal(score, score_c)
     assert float(score) < 1e-3
     np.testing.assert_allclose(best.numpy(), target, atol=0.05)
+
+
+def _reference_draws(n, d, seed):
+    """(r1, r2) as numpy: the reference's ``jax.random`` uniforms."""
+    _, k1, k2 = jax.random.split(jax.random.PRNGKey(seed), 3)
+    return (np.array(jax.random.uniform(k1, (n, d))),
+            np.array(jax.random.uniform(k2, (n, d))))
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("n", [13, 16, 64])
+def test_pso_update_projected_plain_matches_reference(n, batched):
+    """The fused update's plain version (the update, then the tracker's
+    quaternion projection) against the reference's ``pso_ref.pso_update``
+    followed by ``handmodel.normalize_configuration``, on the reference's
+    draws, at the update's 1e-6."""
+    d = 27
+    x, v, pb, gb, _, _, lo, hi = _update_inputs(n, d, seed=n)
+    x[:, 3:7] = x[:, 3:7] * np.float32(2.0)  # off the unit sphere, as PSO leaves it
+    r1, r2 = _reference_draws(n, d, seed=n)
+    args = (x, v, pb, gb, r1, r2, lo, hi)
+    rx, rv = jpso_ref.pso_update(*(jnp.asarray(a) for a in args), **CONSTS)
+    rx = jhm.normalize_configuration(rx)
+    t_args = [torch.from_numpy(np.asarray(a, dtype=np.float32)) for a in args]
+    if batched:  # two swarms: this one and a shifted copy, per-swarm bounds
+        t_args = [torch.stack([a, a + 0.01]) for a in t_args]
+        px, pv = tkernel.pso_update_projected_batched(*t_args, **CONSTS)
+        px, pv = px[0], pv[0]
+    else:
+        px, pv = tkernel.pso_update_projected(*t_args, **CONSTS)
+    np.testing.assert_allclose(px.numpy(), np.asarray(rx), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(pv.numpy(), np.asarray(rv), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(np.linalg.norm(px.numpy()[:, 3:7], axis=-1), 1.0, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [16, 13])
+@pytest.mark.parametrize("restart_fraction", [0.0, 0.25])
+def test_swarm_step_fused_projection_equals_project_fn(restart_fraction, n):
+    """``swarm_step(project_quaternion=True)`` equals ``project_fn=
+    normalize_configuration`` bit for bit on the CPU, for three
+    generations on the same draws, with and without the restart (whose
+    fresh rows stay unprojected), at N = 16 and 13; giving both is an
+    error."""
+    d = 27
+    center, lo, hi, target = _box(d, 5)
+    f_port = _quadratic(target)[1]
+    cfg = tpso.PSOConfig(num_particles=n, restart_fraction=restart_fraction)
+    lo_t, hi_t = torch.from_numpy(lo), torch.from_numpy(hi)
+    rng = np.random.default_rng(6)
+    init = tuple(rng.uniform(size=(n, d)).astype(np.float32) for _ in range(2))
+    fused = unfused = tpso.init_swarm(torch.from_numpy(center), lo_t, hi_t, f_port, cfg,
+                                      draws=init)
+    n_restart = max(1, int(n * restart_fraction))
+    for _ in range(3):
+        draws = (rng.uniform(size=(n, d)).astype(np.float32),
+                 rng.uniform(size=(n, d)).astype(np.float32),
+                 rng.uniform(size=(n_restart, d)).astype(np.float32))
+        unfused = tpso.swarm_step(unfused, lo_t, hi_t, f_port, cfg,
+                                  project_fn=thm.normalize_configuration, draws=draws)
+        fused = tpso.swarm_step(fused, lo_t, hi_t, f_port, cfg, project_quaternion=True,
+                                draws=draws)
+        for name in tpso.SwarmState._fields:
+            assert torch.equal(getattr(fused, name), getattr(unfused, name)), name
+    with pytest.raises(ValueError, match="not both"):
+        tpso.swarm_step(fused, lo_t, hi_t, f_port, cfg, thm.normalize_configuration,
+                        project_quaternion=True, draws=draws)
+

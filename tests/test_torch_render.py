@@ -203,3 +203,49 @@ def test_nan_depth_in_one_client_stays_in_its_row(where):
     for b in (0, 2):
         _assert_scores_close(port[b], ref[b], masks[b])
         _assert_scores_close(sums[b] / max(float(masks[b].sum()), 1.0), ref[b], masks[b])
+
+
+BACKGROUNDS = [tcam.BACKGROUND_DEPTH, 0.55, float("inf"), float("nan")]
+CLAMPS = [tobj.CLAMP_T, float("inf")]
+
+
+def _assert_sums_close(got, want, background, clamp_t):
+    """Raw sums at the render tolerance: rtol 2e-5 plus one silhouette
+    flip, the most one pixel's term can change when a grazing ray flips
+    between a hit (under 1 m on these poses) and ``background``:
+    min(clamp_t, |background| + 1).  NaN where the reference has NaN."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    flip = min(clamp_t, abs(background) + 1.0)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=flip + 1e-6)
+
+
+@pytest.mark.parametrize("clamp_t", CLAMPS)
+@pytest.mark.parametrize("background", BACKGROUNDS)
+def test_render_score_sums_honour_background_and_clamp(background, clamp_t):
+    """``render_score_sums(..., background=, clamp_t=)`` and its batched
+    form (their plain versions on CPU tensors) against the reference's
+    Pallas kernels in interpret mode, which take both keywords: a NaN
+    background, inf - inf and inf * 0 give NaN sums there, and here too."""
+    from repro.kernels import render_score as jrs
+    from repro_torch.kernels import render_score as trs
+
+    spheres, rays, d_o, mask = _score_inputs(8)
+    mask = mask.astype(np.float32)
+    kw = dict(clamp_t=clamp_t, background=background)
+    ref = jrs.render_score_sums(*(jnp.asarray(a) for a in (spheres, rays, d_o, mask)),
+                                block_p=480, interpret=True, **kw)
+    t_args = [torch.from_numpy(a) for a in (spheres, rays, d_o, mask)]
+    port = trs.render_score_sums(*t_args, **kw)
+    _assert_sums_close(port, ref, background, clamp_t)
+    if background == tcam.BACKGROUND_DEPTH and clamp_t == tobj.CLAMP_T:
+        assert torch.equal(trs.render_score_sums(*t_args), port)
+
+    b_args = [np.stack([a, a[::-1].copy()]) for a in (spheres, rays, d_o, mask)]
+    b_args[0][1] = spheres  # client 1: the same population, rays and image reversed
+    ref_b = jrs.render_score_sums_batched(*(jnp.asarray(a) for a in b_args), block_p=480,
+                                          interpret=True, **kw)
+    port_b = trs.render_score_sums_batched(*(torch.from_numpy(a) for a in b_args), **kw)
+    _assert_sums_close(port_b, ref_b, background, clamp_t)
+    assert np.array_equal(port_b[0].numpy(), port.numpy(), equal_nan=True)
