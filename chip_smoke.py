@@ -34,16 +34,21 @@ Phases (any failure exits non-zero and prints no result line):
      ``DeltaStreamEncoder`` -> ``DeltaStreamDecoder`` on the card at
      threshold 0 (every frame decodes bit-identical) and 0.01 m (every
      pixel within it), and once with a packet lost (the forced keyframe
-     arrives within ``resync_bound``); ``change_density`` (K3b's
+     arrives within ``resync_bound``), one launch a delta frame each
+     way (K3 writing the next reference, K4 writing the decoder's state
+     and the copy it returns; no K4 in the encoder, no copy after K4 in
+     the decoder); ``change_density`` (K3b's
      mask-only launch) per transition and the wire ratio; K3b bit for bit
      against its plain version at change_density's own (29, 128, 128)
      call, and change_density equal to the mean of the plain masks and of
      the full launch's; K3, K3b (B = 4) and K4 bit for bit against their
      plain versions at 128x128, at the unaligned 240x320 and at 240x322
      (a width not a multiple of 4), with a NaN tile and a -0.0/+0.0 tile,
-     and the mask-only K3 and K3b equal to the full launches' masks, also
-     on 32x64 and 9x130 tiles (over 1,024 pixels: the kernel's chunk
-     loops); each timed beside its bound, K3 and K3b full and mask-only;
+     and the mask-only K3 and K3b equal to the full launches' masks, K3
+     with the reconstruction equal to K3 then K4 and the two-output K4 to
+     K4, also on 32x64 and 9x130 tiles (over 1,024 pixels: the kernel's
+     chunk loops); each timed beside its bound, K3 and K3b full and
+     mask-only;
   9. the edge server's batched step at full width: 4 clients, each with
      its own decoded frame and 64-particle population, scored by K1b
      (each row equal to K1 on that client), updated by K2b with the
@@ -52,11 +57,17 @@ Phases (any failure exits non-zero and prints no result line):
      client 2's frame alone (row 2 NaN, every other row equal to K1); the
      fused launches timed against 4 solo launches (per_client_vs_solo);
  10. the quantized uplink: the clip through ``encode_frame`` ->
-     ``decode_frame`` (K6, K7, K3's mask-only launch) in a closed loop at
-     16 and 8 bits over (0, 10 m): every pixel within step/2 + 2 ulp(10)
-     of the clipped frame, each delta frame's exact wire bytes within 8 B
-     of the reference's identity, each shipped mask equal to K3's full
-     launch and to the CPU's; then the entropy stage: K5 on K3's threshold-0
+     ``decode_frame`` (one launch each a delta frame; K6 and K7 for the
+     keyframe) in a closed loop at 16 and 8 bits over (0, 10 m): every
+     pixel within step/2 + 2 ulp(10) of the clipped frame, each delta
+     frame's exact wire bytes within 8 B of the reference's identity,
+     each shipped words, mask and decoded frame equal to the composition
+     of standalone kernels they replace (K6, K7, K6, K7, K3 mask-only; K7
+     and the select), to K3's full launch's mask and to the CPU's; the
+     one-launch encode and decode also at bits 16, 8, 4 and 2 on 8x128,
+     8x64 and straddling 9x130 tiles, with NaN and oversized masks, and
+     the decode on ragged tiles, where the encode raises; then the
+     entropy stage: K5 on K3's threshold-0
      residuals (equal to its plain version, and to the host coder's 64-word
      chunk widths), the host coder's roundtrip, and its bytes over raw at
      2 mm noise and on a noise-free clip;
@@ -70,8 +81,14 @@ Phases (any failure exits non-zero and prints no result line):
      against the port's CPU run: densities equal, (gain, floor) to 1e-9;
  13. in the batched step, K6b quantizes the 4 clients' frames and K5b
      scans their 4 residual planes, each row equal to K6/K5 alone;
- 14. one {"kernels": [...]} line with all twelve kernels, then the
-     {"ok": ...} line last.
+ 14. the one-launch paths (encode, decode, K3 with the reconstruction,
+     the two-output K4) timed beside the compositions they replace (events,
+     profiler device time and activities a call, plain version, bound and
+     its bytes); device activities per quantized closed-loop delta frame,
+     old path against new; K4 against torch.bitwise_xor at 128x128,
+     240x320 and 480x640;
+ 15. one {"kernels": [...]} line with all twelve kernels and the four
+     one-launch paths, then the {"ok": ...} line last.
 
 Each path (the tracker, the uplink, the quantized uplink with its
 entropy stage, the batched step) runs with the launch counts set to 0
@@ -583,21 +600,26 @@ def _bit_equal(torch, a, b):
 
 
 def _value_err(torch, got, want):
-    """max |got - want|; NaN against NaN counts 0, NaN against a number inf."""
+    """max |got - want|; NaN against NaN and an infinity against itself
+    count 0, NaN against a number inf."""
     if got.numel() == 0:
         return 0.0
     if not got.is_floating_point():
         return float((got.long() - want.long()).abs().max())
     diff = torch.nan_to_num((got.double() - want.double()).abs(), nan=float("inf"))
-    diff = torch.where(torch.isnan(got) & torch.isnan(want), 0.0, diff)
+    diff = torch.where((torch.isnan(got) & torch.isnan(want)) | (got == want), 0.0, diff)
     return float(diff.max())
 
 
-def _device_ms(torch, fn, reps, names):
-    """Device time (ms) per launch of the kernel whose name contains one
-    of ``names``, by torch.profiler, for an fn that launches it once a
-    call: the mean over the launches the profiler recorded (it may drop
-    some; the count is printed then); None if it saw none."""
+def _device_ms(torch, fn, reps, names=None):
+    """Device time (ms) by torch.profiler over ``reps`` calls of fn.  With
+    ``names``, per launch of the kernel whose name contains one of them,
+    for an fn that launches it once a call: the mean over the launches
+    the profiler recorded (it may drop some; the count is printed then);
+    None if it saw none.  Without, a triple: the time per call summed over
+    every activity recorded on the card (kernels, copies, fills), the
+    activities per call and their names; (None, None, []) if it saw
+    none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -608,6 +630,11 @@ def _device_ms(torch, fn, reps, names):
             fn()
         torch.cuda.synchronize()
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if names is None:
+        if not device:
+            return None, None, []
+        total = sum(e.time_range.end - e.time_range.start for e in device)
+        return total / reps / 1e3, len(device) / reps, sorted({e.name[:40] for e in device})
     spans = [e.time_range.end - e.time_range.start for e in device
              if any(n in e.name for n in names)]
     if not spans:
@@ -722,7 +749,19 @@ def phase_codec_kernels(torch, ck, frames, densities, device):
     the shape the uplink gave it (change_density's transitions of the
     sequence), then all three on planes with a NaN and a signed-zero
     tile."""
-    errs = {"k3": 0.0, "k3b": 0.0, "k4": 0.0}
+    errs = {"k3": 0.0, "k3b": 0.0, "k4": 0.0, "k3_recon": 0.0, "k4_pair": 0.0}
+
+    def check_recon(f, r, d, m, label, **tile):
+        """K3 with the reconstruction against K3 then K4 (d, m from K3) and
+        its CPU plain version, bit for bit."""
+        rd, rm, recon = ck._delta_encode_recon(f, r, **tile)
+        plain = ck._delta_encode_recon(f.cpu(), r.cpu(), **tile)[2]
+        check(_bit_equal(torch, rd, d) and _bit_equal(torch, rm, m)
+              and _bit_equal(torch, recon, ck.delta_decode(d, r))
+              and _bit_equal(torch, recon.cpu(), plain),
+              f"K3 with the reconstruction at {label}: differs from K3 then K4 or the CPU")
+        errs["k3_recon"] = max(errs["k3_recon"], _value_err(torch, recon.cpu(), plain))
+
     for thr, density in densities.items():
         bd, bm = ck.delta_encode_batched(frames[1:], frames[:-1], threshold=thr)
         pd, pm = ck.delta_encode_plain(frames[1:], frames[:-1], threshold=thr)
@@ -770,9 +809,17 @@ def phase_codec_kernels(torch, ck, frames, densities, device):
             changed = m.repeat_interleave(8, 0).repeat_interleave(128, 1)[:h, :w] > 0
             check(_bit_equal(torch, out[changed], f[0][changed]),
                   f"K3 -> K4 at {h}x{w}: a changed tile does not reconstruct bit for bit")
+            check_recon(f[0], r[0], d, m, f"{h}x{w}, threshold {thr}", threshold=thr)
+            state, copy = ck._delta_decode_pair(d, r[0])
+            check(_bit_equal(torch, state, out) and _bit_equal(torch, copy, out)
+                  and state.data_ptr() != copy.data_ptr(),
+                  f"the two-output K4 at {h}x{w} differs from K4 or wrote one tensor")
+            errs["k4_pair"] = max(errs["k4_pair"], _value_err(torch, state, want),
+                                  _value_err(torch, copy, want))
         log(f"[codec] {h}x{w}, thresholds {STREAM_THRESHOLDS}: K3, K3b (B={CLIENTS}, rows = K3) "
             f"and K4 bit-identical to their plain versions, the mask-only K3 and K3b to the "
-            f"full launches' masks; NaN and -0.0/+0.0 tiles unchanged")
+            f"full launches' masks, K3 with the reconstruction to K3 then K4, the two-output "
+            f"K4 to K4; NaN and -0.0/+0.0 tiles unchanged")
     # tiles of over 1,024 pixels run the kernel's loops over later chunks:
     # 32x64 on the vector path, 9x130 on the scalar path, both ragged
     for h, w, bh, bw in ((240, 320, 32, 64), (240, 322, 9, 130)):
@@ -792,9 +839,11 @@ def phase_codec_kernels(torch, ck, frames, densities, device):
                   f"full launch's mask")
             errs["k3"] = max(errs["k3"], _value_err(torch, d, pd[0]))
             errs["k3b"] = max(errs["k3b"], _value_err(torch, bd, pd))
+            check_recon(f[0], r[0], d, m, f"{h}x{w} on {bh}x{bw} tiles, threshold {thr}",
+                        **tile)
         log(f"[codec] {h}x{w} on {bh}x{bw} tiles ({bh * bw} pixels), thresholds "
-            f"{STREAM_THRESHOLDS}: K3, K3b and their mask-only launches bit-identical to the "
-            f"plain version")
+            f"{STREAM_THRESHOLDS}: K3, K3b, their mask-only launches and K3 with the "
+            f"reconstruction bit-identical to the plain version (and to K3 then K4)")
     return errs
 
 
@@ -811,8 +860,8 @@ def phase_quant_uplink(torch, ck, cref, wire, frames, lo, hi):
     """The clip through the quantized wire format in a closed loop on the
     card: frame 0 is a keyframe (K6, K7), every later frame is encoded
     against the receiver's previous reconstruction and decoded.  Returns
-    the ratios, and each delta frame's (bits, frame, reference, mask) for
-    phase_encode_masks."""
+    the ratios, and each delta frame's (bits, frame, reference, words,
+    mask, decoded frame) for phase_encode_masks."""
     import numpy as np
 
     t_count, h, w = frames.shape
@@ -828,8 +877,9 @@ def phase_quant_uplink(torch, ck, cref, wire, frames, lo, hi):
         for t in range(t_count):
             if t:
                 words, mask = wire.encode_frame(frames[t], recon, lo, hi, bits=bits)
-                encoded.append((bits, frames[t], recon, mask))
-                recon = wire.decode_frame(words, mask, recon, lo, hi, bits=bits)
+                ref = recon
+                recon = wire.decode_frame(words, mask, ref, lo, hi, bits=bits)
+                encoded.append((bits, frames[t], ref, words, mask, recon))
                 density = float(mask.mean())
                 exact = cref.encoded_nbytes_exact(mask, bits=bits,
                                                   header_nbytes=HEADER_NBYTES)
@@ -858,22 +908,52 @@ def phase_quant_uplink(torch, ck, cref, wire, frames, lo, hi):
     return out, encoded
 
 
-def phase_encode_masks(torch, ck, cref, wire, encoded, lo, hi):
-    """Each change mask the quantized uplink shipped (encode_frame, K3's
-    mask-only launch) against K3's full launch on the same dequantized
-    planes, and against encode_frame's plain composition on the CPU, bit
-    for bit."""
-    for bits, frame, ref, mask in encoded:
-        recon = ck.unpack_dequantize(ck.quantize_pack(frame, lo, hi, bits=bits), lo, hi,
+def old_encode_frame(ck, cref, frame, ref, lo, hi, bits, block_h=8, block_w=128):
+    """encode_frame as five launches of the standalone kernels, as it ran
+    before its one launch: K6, K7, K6, K7, then K3's mask-only launch at
+    threshold step/2."""
+    words = ck.quantize_pack(frame, lo, hi, bits=bits)
+    recon = ck.unpack_dequantize(words, lo, hi, bits=bits)
+    ref_recon = ck.unpack_dequantize(ck.quantize_pack(ref, lo, hi, bits=bits), lo, hi,
                                      bits=bits)
-        ref_recon = ck.unpack_dequantize(ck.quantize_pack(ref, lo, hi, bits=bits), lo, hi,
-                                         bits=bits)
-        _, full = ck.delta_encode(recon, ref_recon, threshold=cref.quant_step(lo, hi, bits) / 2)
-        _, host = wire.encode_frame(frame.cpu(), ref.cpu(), lo, hi, bits=bits)
-        check(_bit_equal(torch, mask, full) and _bit_equal(torch, mask.cpu(), host),
-              f"encode_frame's mask at {bits} bits differs from K3's full launch or the CPU")
-    log(f"[quant] the {len(encoded)} masks encode_frame shipped (K3's mask-only launch) equal "
-        f"K3's full launch on the same planes and the CPU composition, bit for bit")
+    step = cref.quant_step(lo, hi, bits)
+    return words, ck._delta_mask(recon, ref_recon, threshold=step / 2, block_h=block_h,
+                                 block_w=block_w)
+
+
+def old_decode_frame(ck, cref, words, mask, ref, lo, hi, bits, block_h=8, block_w=128):
+    """decode_frame as it ran before its one launch: K7, then the mask
+    select's eager ops."""
+    recon = ck.unpack_dequantize(words, lo, hi, bits=bits)
+    return cref.select_tiles(recon, mask, ref, block_h, block_w)
+
+
+def phase_encode_masks(torch, ck, cref, wire, encoded, lo, hi):
+    """Each delta frame the quantized uplink shipped and decoded (one
+    launch each) against the composition of standalone kernels it
+    replaced, on the same planes, and against the plain composition on
+    the CPU, bit for bit: the words, the mask and the decoded frame."""
+    for bits, frame, ref, words, mask, decoded in encoded:
+        old_words, old_mask = old_encode_frame(ck, cref, frame, ref, lo, hi, bits)
+        _, full = ck.delta_encode(
+            ck.unpack_dequantize(old_words, lo, hi, bits=bits),
+            ck.unpack_dequantize(ck.quantize_pack(ref, lo, hi, bits=bits), lo, hi, bits=bits),
+            threshold=cref.quant_step(lo, hi, bits) / 2)
+        host_words, host_mask = wire.encode_frame(frame.cpu(), ref.cpu(), lo, hi, bits=bits)
+        check(_bit_equal(torch, words, old_words) and _bit_equal(torch, words.cpu(), host_words),
+              f"encode_frame's words at {bits} bits differ from K6's or the CPU's")
+        check(_bit_equal(torch, mask, old_mask) and _bit_equal(torch, mask, full)
+              and _bit_equal(torch, mask.cpu(), host_mask),
+              f"encode_frame's mask at {bits} bits differs from K3's mask-only or full launch "
+              f"on K7's planes, or from the CPU")
+        host = wire.decode_frame(host_words, host_mask, ref.cpu(), lo, hi, bits=bits)
+        check(_bit_equal(torch, decoded, old_decode_frame(ck, cref, words, mask, ref, lo, hi, bits))
+              and _bit_equal(torch, decoded.cpu(), host),
+              f"decode_frame at {bits} bits differs from K7 and the select, or from the CPU")
+    log(f"[quant] the {len(encoded)} delta frames encode_frame and decode_frame shipped and "
+        f"decoded in one launch each equal the composition of standalone kernels they "
+        f"replace (K6, K7, K6, K7, K3 mask-only; K7 and the select), K3's full launch's mask "
+        f"and the CPU composition, bit for bit")
 
 
 def phase_entropy(torch, ck, cref, clips):
@@ -991,6 +1071,78 @@ def phase_quant_kernels(torch, ck, cref, frames, device):
     log(f"[quant] the plain quantizer on the card divides by a CUDA tensor: it equals the "
         f"CPU's on every plane. PyTorch's division by a Python float moved {moved} of "
         f"{ties} exact half-step ties on this card")
+    return errs
+
+
+# (h, w, block_h, block_w, bits): the one-launch encode and decode at
+# 128x128 on 8x128 tiles (at 1 bit 8 lanes build one word), at 240x320 on
+# whole 8x64 tiles (8x128 tiles do not divide it), and on 9x130 tiles,
+# where at 8 and 4 bits a word straddles two tiles
+FUSED_SHAPES = ([(128, 128, 8, 128, b) for b in (16, 8, 4, 2, 1)]
+                + [(240, 320, 8, 64, b) for b in (16, 8, 4, 2)]
+                + [(18, 260, 9, 130, 16), (18, 260, 9, 130, 8), (18, 520, 9, 130, 4)])
+
+
+def phase_fused_shapes(torch, ck, cref, wire, device, lo, hi):
+    """The one-launch encode and decode against the composition of
+    standalone kernels they replace and the CPU's plain composition, bit
+    for bit, at FUSED_SHAPES: a frame moved on both sides of column 130
+    and in its last pixel, with ties, NaN and +-inf; the decode also with
+    a NaN mask value, a mask one tile larger than the grid, and at
+    240x320 on ragged 8x128 tiles, where the encode must raise."""
+    errs = {"quant_encode": 0.0, "quant_decode": 0.0}
+    for h, w, bh, bw, bits in FUSED_SHAPES:
+        tile = dict(bits=bits, block_h=bh, block_w=bw)
+        ref = _quant_planes(torch, h, w, lo, hi, bits, device, seed=bits + w, b=1)[0]
+        frame = ref.clone()
+        frame[:4, 130:134] += (hi - lo) / 2
+        frame[bh:bh + 4, 126:130] += (hi - lo) / 2
+        frame[-1, -1] += (hi - lo) / 2
+        words, mask = wire.encode_frame(frame, ref, lo, hi, **tile)
+        old_words, old_mask = old_encode_frame(ck, cref, frame, ref, lo, hi, bits, bh, bw)
+        host_words, host_mask = wire.encode_frame(frame.cpu(), ref.cpu(), lo, hi, **tile)
+        check(0 < float(mask.sum()) < mask.numel(), f"{h}x{w}: no mixed mask to test")
+        check(_bit_equal(torch, words, old_words) and _bit_equal(torch, mask, old_mask)
+              and _bit_equal(torch, words.cpu(), host_words)
+              and _bit_equal(torch, mask.cpu(), host_mask),
+              f"the one-launch encode at {h}x{w} on {bh}x{bw} tiles, {bits} bits: differs "
+              f"from the composition or the CPU")
+        errs["quant_encode"] = max(errs["quant_encode"], _value_err(torch, words.cpu(),
+                                                                    host_words))
+        odd = mask.clone()
+        odd[0, 0] = float("nan")
+        big = torch.nn.functional.pad(mask, (0, 1, 0, 1), value=1.0)
+        for m in (mask, odd, big):
+            out = wire.decode_frame(words, m, ref, lo, hi, **tile)
+            host = wire.decode_frame(host_words, m.cpu(), ref.cpu(), lo, hi, **tile)
+            check(_bit_equal(torch, out, old_decode_frame(ck, cref, words, m, ref, lo, hi,
+                                                          bits, bh, bw))
+                  and _bit_equal(torch, out.cpu(), host),
+                  f"the one-launch decode at {h}x{w} on {bh}x{bw} tiles, {bits} bits: "
+                  f"differs from K7 and the select or the CPU")
+            errs["quant_decode"] = max(errs["quant_decode"], _value_err(torch, out.cpu(), host))
+        if (h, w) == (240, 320):
+            before = dict(ck.launches)
+            try:
+                wire.encode_frame(frame, ref, lo, hi, bits=bits)
+                refused = False
+            except ValueError:
+                refused = ck.launches == before
+            check(refused, "encode_frame on 8x128 tiles that do not divide 240x320 did not "
+                           "raise before any launch")
+            _, ragged = old_encode_frame(ck, cref, frame, ref, lo, hi, bits)
+            out = wire.decode_frame(words, ragged, ref, lo, hi, bits=bits)
+            check(_bit_equal(torch, out, old_decode_frame(ck, cref, words, ragged, ref, lo,
+                                                          hi, bits))
+                  and _bit_equal(torch, out.cpu(), wire.decode_frame(
+                      words.cpu(), ragged.cpu(), ref.cpu(), lo, hi, bits=bits)),
+                  f"the one-launch decode at 240x320 on ragged 8x128 tiles, {bits} bits: "
+                  f"differs from K7 and the select or the CPU")
+    log(f"[quant] the one-launch encode and decode at {len(FUSED_SHAPES)} (shape, tile, bits) "
+        f"cases (8x128, 8x64 and straddling 9x130 tiles; bits 16, 8, 4, 2, and 1 on 8x128 "
+        f"tiles; ties, NaN, +-inf; "
+        f"NaN and oversized masks; ragged 8x128 tiles for the decode, where the encode raises) "
+        f"equal the composition of standalone kernels and the CPU, bit for bit")
     return errs
 
 
@@ -1315,6 +1467,99 @@ def phase_slice3_timing(torch, ck, frames, step_inputs, device, lo, hi):
     return out
 
 
+def phase_fused_timing(torch, ck, cref, wire, frames, device, lo, hi):
+    """Each one-launch path beside the composition it replaces, in this
+    run: CUDA events, profiler device time and device activities per
+    call, the plain version, the bound and its bytes; device activities
+    per quantized closed-loop delta frame, old path against new; and K4
+    against torch.bitwise_xor at 128x128, 240x320 and 480x640."""
+    out = {}
+    h, w = frames.shape[1:]
+    tiles = -(-h // 8) * -(-w // 128)
+
+    def row(key, label, new, old, old_label, plain, nbytes, reps=500):
+        ms, old_ms = _time_ms(torch, new, reps), _time_ms(torch, old, reps)
+        dev, acts, _ = _device_ms(torch, new, 50)
+        old_dev, old_acts, old_names = _device_ms(torch, old, 50)
+        plain_ms = _time_ms(torch, plain, 50)
+        bound, by = _bound(0, nbytes)
+        log(f"[time] {label}: {_us(ms)} (device {_us(dev)}, {acts} activities a call); "
+            f"{old_label}: {_us(old_ms)} (device {_us(old_dev)}, {old_acts} activities a "
+            f"call: {old_names}); plain {_us(plain_ms)}; bound {bound * 1e3:.4f} us "
+            f"({nbytes} B, {by})")
+        if key:
+            out[key] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound,
+                            bound_by=by, library_ms=None,
+                            composition=dict(ms=old_ms, device_ms=old_dev, activities=old_acts))
+
+    f = frames[2]
+    for bits in QUANT_BITS:
+        # the closed loop's call: the next frame against the receiver's
+        # reconstruction of the last
+        ref = ck.unpack_dequantize(ck.quantize_pack(frames[1], lo, hi, bits=bits), lo, hi,
+                                   bits=bits)
+        key = bits == 8
+        words, mask = wire.encode_frame(f, ref, lo, hi, bits=bits)
+        row("quant_encode" if key else None, f"one-launch encode at {h}x{w}, {bits} bits",
+            lambda: wire.encode_frame(f, ref, lo, hi, bits=bits),
+            lambda: old_encode_frame(ck, cref, f, ref, lo, hi, bits),
+            "K6, K7, K6, K7 and K3 mask-only",
+            lambda: ck.quant_encode_plain(f, ref, lo, hi, bits=bits),
+            8 * h * w + h * w * bits // 8 + 4 * tiles)
+        changed = int(mask.sum())
+        # the changed tiles' words and the other tiles' reference are read
+        row("quant_decode" if key else None,
+            f"one-launch decode at {h}x{w}, {bits} bits ({changed} of {tiles} tiles changed)",
+            lambda: wire.decode_frame(words, mask, ref, lo, hi, bits=bits),
+            lambda: old_decode_frame(ck, cref, words, mask, ref, lo, hi, bits),
+            "K7 and the select's eager ops",
+            lambda: ck.quant_decode_plain(words, mask, ref, lo, hi, bits=bits),
+            4 * h * w + 4 * tiles + 8 * 128 * (changed * bits // 8 + (tiles - changed) * 4))
+        new_frame = lambda: wire.decode_frame(*wire.encode_frame(f, ref, lo, hi, bits=bits),
+                                              ref, lo, hi, bits=bits)
+        old_frame = lambda: old_decode_frame(
+            ck, cref, *old_encode_frame(ck, cref, f, ref, lo, hi, bits), ref, lo, hi, bits)
+        _, new_acts, _ = _device_ms(torch, new_frame, 20)
+        _, old_acts, _ = _device_ms(torch, old_frame, 20)
+        out.setdefault("activities_per_frame", {})[bits] = dict(old=old_acts, new=new_acts)
+        log(f"[profile] device activities per quantized closed-loop delta frame (encode_frame "
+            f"+ decode_frame) at {bits} bits: old path {old_acts}, new path {new_acts}")
+
+    r = frames[1]
+    row("k3_recon", f"K3 with the reconstruction at {h}x{w}",
+        lambda: ck._delta_encode_recon(f, r, threshold=0.01),
+        lambda: ck.delta_decode(ck.delta_encode(f, r, threshold=0.01)[0], r), "K3 then K4",
+        lambda: ck.delta_decode_plain(ck.delta_encode_plain(f[None], r[None],
+                                                            threshold=0.01)[0][0], r),
+        16 * h * w + 4 * tiles)
+    delta, _ = ck.delta_encode(f, r, threshold=0.01)
+    row("k4_pair", f"two-output K4 at {h}x{w}", lambda: ck._delta_decode_pair(delta, r),
+        lambda: ck.delta_decode(delta, r).clone(), "K4 then a device copy",
+        lambda: (lambda o: (o, o.clone()))(ck.delta_decode_plain(delta, r)), 16 * h * w)
+
+    sizes = []
+    gen = torch.Generator(device=device).manual_seed(17)
+    for ph, pw in ((128, 128), (240, 320), (480, 640)):
+        ref = torch.rand((ph, pw), generator=gen, device=device) + 0.5
+        moved = ref + 0.01 * torch.rand((ph, pw), generator=gen, device=device)
+        bits_delta, _ = ck.delta_encode(moved, ref)
+        dec = lambda: ck.delta_decode(bits_delta, ref)
+        xor = lambda: torch.bitwise_xor(ref.view(torch.int32), bits_delta).view(torch.float32)
+        ms, xor_ms = _time_ms(torch, dec, 500), _time_ms(torch, xor, 500)
+        dev, _, _ = _device_ms(torch, dec, 50)
+        xor_dev, _, _ = _device_ms(torch, xor, 50)
+        nbytes = 12 * ph * pw
+        bound, _ = _bound(0, nbytes)
+        sizes.append(dict(shape=[ph, pw], ms=ms, device_ms=dev, library_ms=xor_ms,
+                          library_device_ms=xor_dev, bound_ms=bound))
+        log(f"[time] K4 at {ph}x{pw}: {_us(ms)} (device {_us(dev)}); torch.bitwise_xor on "
+            f"the bit views {_us(xor_ms)} (device {_us(xor_dev)}); bound {bound * 1e3:.4f} "
+            f"us ({nbytes} B); device / bound "
+            f"{'not measured' if dev is None else f'{dev / bound:.2f}'}")
+    out["k4_sizes"] = sizes
+    return out
+
+
 SLICE3_KERNELS = [
     # key, name, replaces (all in src/repro_torch/csrc/quant_codec.cu)
     ("k5", "significant_bit_widths", "src/repro/codec/kernels.py:229"),
@@ -1323,6 +1568,23 @@ SLICE3_KERNELS = [
     ("k6b", "quantize_pack_batched", "src/repro/codec/kernels.py:409"),
     ("k7", "unpack_dequantize", "src/repro/codec/kernels.py:370"),
 ]
+
+
+FUSED_KERNELS = [
+    # key, name, source, replaces: the launches that took over K7's and K4's
+    # work (the TPU kernel each redesigns)
+    ("quant_encode", "quant_encode", "src/repro_torch/csrc/quant_codec.cu",
+     "src/repro/codec/kernels.py:370"),
+    ("quant_decode", "quant_decode", "src/repro_torch/csrc/quant_codec.cu",
+     "src/repro/codec/kernels.py:370"),
+    ("k3_recon", "delta_encode_recon", "src/repro_torch/csrc/delta_codec.cu",
+     "src/repro/codec/kernels.py:130"),
+    ("k4_pair", "delta_decode_pair", "src/repro_torch/csrc/delta_codec.cu",
+     "src/repro/codec/kernels.py:130"),
+]
+
+# rows whose launches are also counted in another row's: the row's name
+SUBSET_OF = {"k3_recon": "delta_encode", "k4_pair": "delta_decode"}
 
 
 SLICE2_KERNELS = [
@@ -1387,14 +1649,21 @@ def main() -> int:
     torch.cuda.synchronize()
     launches.update({"k3": ck.launches["delta_encode"],
                      "k3b": ck.launches["delta_encode_batched"],
-                     "k4": ck.launches["delta_decode"]})
+                     "k4": ck.launches["delta_decode"],
+                     "k3_recon": ck.launches["delta_encode_recon"],
+                     "k4_pair": ck.launches["delta_decode_pair"]})
     mask_only = ck.launches["delta_encode_mask_only"]
-    log(f"[uplink] launches: K3 {launches['k3']}, K3b {launches['k3b']} ({mask_only} "
-        f"mask-only, by change_density), K4 {launches['k4']}")
+    log(f"[uplink] launches: K3 {launches['k3']} ({launches['k3_recon']} with the "
+        f"reconstruction, by the stream encoder), K3b {launches['k3b']} ({mask_only} "
+        f"mask-only, by change_density), K4 {launches['k4']} ({launches['k4_pair']} with two "
+        f"outputs, by the stream decoder)")
     check(min(launches["k3"], launches["k3b"], launches["k4"]) > 0,
           "a kernel of the uplink path was not launched")
     check(mask_only == launches["k3b"] == len(densities),
           f"change_density launched K3b mask-only {mask_only} times, expected {len(densities)}")
+    check(launches["k3_recon"] == launches["k3"] and launches["k4_pair"] == launches["k4"],
+          "the stream machines launched a K3 without the reconstruction or a K4 with one "
+          "output: the encoder must launch no K4, the decoder no copy after K4")
     errs = phase_codec_kernels(torch, ck, frames, densities, device)
 
     # the quantized uplink and its entropy stage, on a clip with 2 mm noise
@@ -1408,15 +1677,22 @@ def main() -> int:
     phase_entropy(torch, ck, cref, {"noise 2 mm": frames, "noise-free": clean})
     torch.cuda.synchronize()
     quant = {"k3": ck.launches["delta_encode"], "k5": ck.launches["significant_bit_widths"],
-             "k6": ck.launches["quantize_pack"], "k7": ck.launches["unpack_dequantize"]}
-    mask_only = ck.launches["delta_encode_mask_only"]
-    log(f"[quant] launches on the quantized uplink and entropy stage: K3 {quant['k3']} "
-        f"({mask_only} mask-only, by encode_frame), K5 {quant['k5']}, K6 {quant['k6']}, "
-        f"K7 {quant['k7']}")
+             "k6": ck.launches["quantize_pack"], "k7": ck.launches["unpack_dequantize"],
+             "quant_encode": ck.launches["quant_encode"],
+             "quant_decode": ck.launches["quant_decode"]}
+    others = sum(ck.launches.values()) - sum(quant.values())
+    log(f"[quant] launches on the quantized uplink and entropy stage: one-launch encode "
+        f"{quant['quant_encode']} and decode {quant['quant_decode']} (one each a delta frame), "
+        f"K6 {quant['k6']} and K7 {quant['k7']} (the keyframes), K3 {quant['k3']} (the entropy "
+        f"stage's residuals), K5 {quant['k5']}; {others} others")
     check(min(quant.values()) > 0, "a kernel of the quantized uplink path was not launched")
-    check(mask_only == len(encoded), f"encode_frame launched K3 mask-only {mask_only} times, "
-                                     f"expected {len(encoded)}")
+    check(quant["quant_encode"] == quant["quant_decode"] == len(encoded)
+          and quant["k6"] == quant["k7"] == len(QUANT_BITS) and others == 0,
+          f"encode_frame and decode_frame must be one launch a delta frame ({len(encoded)}) "
+          f"and K6/K7 run only for the {len(QUANT_BITS)} keyframes: got {quant}, {others} "
+          f"other launches")
     phase_encode_masks(torch, ck, cref, wire, encoded, lo, hi)
+    errs.update(phase_fused_shapes(torch, ck, cref, wire, device, lo, hi))
     launches["k3"] += quant.pop("k3")
     launches.update(quant)
     errs.update(phase_quant_kernels(torch, ck, cref, frames, device))
@@ -1428,8 +1704,13 @@ def main() -> int:
     errs.update(step_errs)
     timing = phase_slice2_timing(torch, rs, pu, ck, frames, step_inputs, device)
     timing.update(phase_slice3_timing(torch, ck, frames, step_inputs, device, lo, hi))
-    rows = SLICE2_KERNELS + [(key, name, "src/repro_torch/csrc/quant_codec.cu", replaces)
-                             for key, name, replaces in SLICE3_KERNELS]
+    timing.update(phase_fused_timing(torch, ck, cref, wire, frames, device, lo, hi))
+    timing["k4"]["sizes"] = timing.pop("k4_sizes")
+    rows = (SLICE2_KERNELS
+            + [(key, name, "src/repro_torch/csrc/quant_codec.cu", replaces)
+               for key, name, replaces in SLICE3_KERNELS]
+            + FUSED_KERNELS)
+    extras = ("mask_only", "composition", "sizes")
     for key, name, source, replaces in rows:
         t = timing[key]
         kernels.append({
@@ -1437,8 +1718,12 @@ def main() -> int:
             "launches": launches[key], "max_abs_err": errs[key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
-            **({"mask_only": t["mask_only"]} if "mask_only" in t else {})})
-    check(len(kernels) == 12, f"{len(kernels)} kernels in the kernels line, expected 12")
+            **{k: t[k] for k in extras if k in t},
+            **({"subset_of": SUBSET_OF[key]} if key in SUBSET_OF else {})})
+    log(f"[profile] device activities per quantized closed-loop delta frame, old path -> new: "
+        + ", ".join(f"{b} bits {a['old']} -> {a['new']}"
+                    for b, a in timing["activities_per_frame"].items()))
+    check(len(kernels) == 16, f"{len(kernels)} kernels in the kernels line, expected 16")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -8,7 +8,11 @@ Replace the Pallas TPU kernels of ``repro/codec/kernels.py``:
   delta is the XOR of the float32 bit patterns on changed tiles and 0
   elsewhere, and the mask is 1.0 on changed tiles.  The decode XORs the
   delta back into the reference's bits.  ``_delta_mask`` returns the
-  mask alone, from a launch of K3 or K3b that does not write the delta.
+  mask alone, from a launch of K3 or K3b that does not write the delta;
+  ``_delta_encode_recon`` adds the decode of the delta against the
+  reference, from a launch of K3 that also writes it (the stream
+  encoder's closed loop); ``_delta_decode_pair`` is K4 writing its
+  result twice (the stream decoder's state and the copy it returns).
 * K6 ``quantize_pack``, K6b ``quantize_pack_batched`` and K7
   ``unpack_dequantize`` (``csrc/quant_codec.cu``): ``bits``-wide codes,
   round half to even of a true float32 division, ``32 // bits`` codes
@@ -16,6 +20,14 @@ Replace the Pallas TPU kernels of ``repro/codec/kernels.py``:
 * K5 ``significant_bit_widths`` and K5b ``significant_bit_widths_batched``
   (``csrc/quant_codec.cu``): per tile, the bit length of the tile's max
   word read as uint32, the entropy stage's side information.
+* The quantized wire format's two launches (``csrc/quant_codec.cu``):
+  ``_quant_encode``, K6's words and the change mask of the dequantized
+  planes at threshold ``step/2`` in one launch (K6, K7, K6, K7 and K3's
+  mask before), and ``_quant_decode``, K7 on the changed tiles and the
+  reference's bits on the others in one launch (K7 and a mask select
+  before).  Their plain versions, ``quant_encode_plain`` and
+  ``quant_decode_plain``, are ``codec/ref.py``'s ``encode_frame`` and
+  ``decode_frame``, those compositions of the oracles.
 
 The ``.cu`` files say what bounds each kernel on an H100 (bytes, and at
 one 128x128 plane the launch) and how NaN, infinities, signed zeros and
@@ -44,17 +56,23 @@ import torch
 
 from repro_torch.codec import ref as _ref
 from repro_torch.codec.ref import DEFAULT_BLOCK_H, DEFAULT_BLOCK_W
+from repro_torch.codec.ref import decode_frame as quant_decode_plain
 from repro_torch.codec.ref import delta_decode as delta_decode_plain
+from repro_torch.codec.ref import encode_frame as quant_encode_plain
 from repro_torch.kernels import _build
 
 # Launches of each CUDA kernel since the counts were last set to 0;
 # "delta_encode_mask_only" counts the launches of K3 or K3b, already
-# counted under their own names, that wrote the mask alone.
+# counted under their own names, that wrote the mask alone,
+# "delta_encode_recon" those of K3 that also wrote the reconstruction,
+# and "delta_decode_pair" those of K4, already counted as K4, that wrote
+# two outputs.
 launches = {
     "delta_encode": 0, "delta_encode_batched": 0, "delta_encode_mask_only": 0,
-    "delta_decode": 0,
+    "delta_encode_recon": 0, "delta_decode": 0, "delta_decode_pair": 0,
     "significant_bit_widths": 0, "significant_bit_widths_batched": 0,
     "quantize_pack": 0, "quantize_pack_batched": 0, "unpack_dequantize": 0,
+    "quant_encode": 0, "quant_decode": 0,
 }
 
 
@@ -101,30 +119,37 @@ def _check_tile(block_h: int, block_w: int) -> None:
         raise ValueError(f"tile ({block_h}, {block_w}) must be at least (1, 1)")
 
 
-def _encode_launch(frames, refs, threshold, block_h, block_w, write_delta=True):
+def _encode_launch(frames, refs, threshold, block_h, block_w, write_delta=True,
+                   write_recon=False):
     """One launch of the encode kernel over (B, H, W) planes: (delta,
-    mask, launched); without ``write_delta`` the mask-only launch, and
-    delta is None."""
+    mask, recon, launched); without ``write_delta`` the mask-only launch,
+    and delta is None; with ``write_recon`` the launch that also writes
+    the reconstruction, else recon is None."""
     device = frames.device
     b, h, w = frames.shape
     tiles = (-(-h // block_h), -(-w // block_w))
     if b * h * w >= 2**31:
         raise ValueError("the kernel indexes the planes with 32-bit ints")
-    delta = (torch.empty((b, h, w), dtype=torch.int32, device=device)
-             if write_delta else None)
+
+    def plane(dtype, wanted):
+        return torch.empty((b, h, w), dtype=dtype, device=device) if wanted else None
+
+    delta = plane(torch.int32, write_delta)
+    recon = plane(torch.float32, write_recon)
     mask = torch.empty((b, *tiles), dtype=torch.float32, device=device)
     if b * h * w == 0:
-        return delta, mask.zero_(), False
+        return delta, mask.zero_(), recon, False
     f = _build.kernel_input("frame", frames, device)
     r = _build.kernel_input("ref", refs, device)
     with torch.cuda.device(device):
         err = _build.library().delta_encode_launch(
             f.data_ptr(), r.data_ptr(), None if delta is None else delta.data_ptr(),
-            mask.data_ptr(), b, h, w, block_h, block_w, threshold,
-            _build.stream_handle(device))
+            None if recon is None else recon.data_ptr(), mask.data_ptr(), b, h, w,
+            block_h, block_w, threshold, _build.stream_handle(device))
     _build.check(err, "delta_encode")
     launches["delta_encode_mask_only"] += not write_delta
-    return delta, mask, True
+    launches["delta_encode_recon"] += write_recon
+    return delta, mask, recon, True
 
 
 def delta_encode(
@@ -143,10 +168,35 @@ def delta_encode(
         delta, mask = delta_encode_plain(frame[None], ref[None], threshold=threshold,
                                          block_h=block_h, block_w=block_w)
         return delta[0], mask[0]
-    delta, mask, launched = _encode_launch(frame[None], ref[None], threshold,
-                                           block_h, block_w)
+    delta, mask, _, launched = _encode_launch(frame[None], ref[None], threshold,
+                                              block_h, block_w)
     launches["delta_encode"] += launched
     return delta[0], mask[0]
+
+
+def _delta_encode_recon(
+    frame: torch.Tensor,  # (H, W) float
+    ref: torch.Tensor,  # (H, W) float
+    *,
+    threshold: float = 0.0,
+    block_h: int = DEFAULT_BLOCK_H,
+    block_w: int = DEFAULT_BLOCK_W,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``delta_encode`` and ``delta_decode(delta, ref)``, bit for bit:
+    ``(delta_bits, mask, recon (H, W) f32)``, where recon holds the
+    frame's bits on changed tiles and the reference's elsewhere, in a new
+    tensor.  One launch of K3 that writes all three: for the stream
+    encoder, whose next reference is the receiver's reconstruction."""
+    _check_pair(frame, ref, 2)
+    _check_tile(block_h, block_w)
+    if not frame.is_cuda:
+        delta, mask = delta_encode_plain(frame[None], ref[None], threshold=threshold,
+                                         block_h=block_h, block_w=block_w)
+        return delta[0], mask[0], delta_decode_plain(delta[0], ref)
+    delta, mask, recon, launched = _encode_launch(frame[None], ref[None], threshold,
+                                                  block_h, block_w, write_recon=True)
+    launches["delta_encode"] += launched
+    return delta[0], mask[0], recon[0]
 
 
 def _delta_mask(
@@ -169,8 +219,8 @@ def _delta_mask(
         _, mask = delta_encode_plain(*planes, threshold=threshold, block_h=block_h,
                                      block_w=block_w)
     else:
-        _, mask, launched = _encode_launch(*planes, threshold, block_h, block_w,
-                                           write_delta=False)
+        _, mask, _, launched = _encode_launch(*planes, threshold, block_h, block_w,
+                                              write_delta=False)
         launches["delta_encode_batched" if batched else "delta_encode"] += launched
     return mask if batched else mask[0]
 
@@ -202,9 +252,40 @@ def delta_encode_batched(
         return torch.stack([d for d, _ in outs]), torch.stack([m for _, m in outs])
     if not frames.is_cuda:
         return delta_encode_plain(frames, refs, **consts)
-    delta, mask, launched = _encode_launch(frames, refs, threshold, block_h, block_w)
+    delta, mask, _, launched = _encode_launch(frames, refs, threshold, block_h, block_w)
     launches["delta_encode_batched"] += launched
     return delta, mask
+
+
+def _check_decode(delta_bits: torch.Tensor, ref: torch.Tensor) -> None:
+    if delta_bits.dim() != 2 or ref.shape != delta_bits.shape:
+        raise ValueError(f"delta {tuple(delta_bits.shape)} and ref {tuple(ref.shape)}: "
+                         "expected two planes of one shape (H, W)")
+    if delta_bits.dtype != torch.int32:
+        raise TypeError(f"delta_bits has dtype {delta_bits.dtype}, expected int32")
+
+
+def _decode_launch(delta_bits, ref, copies):
+    """One launch of K4 writing its result into ``copies`` (1 or 2) new
+    planes."""
+    device = delta_bits.device
+    n = delta_bits.numel()
+    if n >= 2**31:
+        raise ValueError("the kernel indexes the plane with 32-bit ints")
+    outs = [torch.empty(delta_bits.shape, dtype=torch.float32, device=device)
+            for _ in range(copies)]
+    if n == 0:
+        return outs
+    d = delta_bits.contiguous()
+    r = _build.kernel_input("ref", ref, device)
+    with torch.cuda.device(device):
+        err = _build.library().delta_decode_launch(
+            d.data_ptr(), r.data_ptr(), outs[0].data_ptr(),
+            outs[1].data_ptr() if copies == 2 else None, n, _build.stream_handle(device))
+    _build.check(err, "delta_decode")
+    launches["delta_decode"] += 1
+    launches["delta_decode_pair"] += copies == 2
+    return outs
 
 
 def delta_decode(
@@ -215,28 +296,25 @@ def delta_decode(
     tiles, the reference (error <= the encode threshold) on unchanged
     ones.  The decode is one XOR per word, so it needs neither the tile
     shape nor the reference's padding."""
-    if delta_bits.dim() != 2 or ref.shape != delta_bits.shape:
-        raise ValueError(f"delta {tuple(delta_bits.shape)} and ref {tuple(ref.shape)}: "
-                         "expected two planes of one shape (H, W)")
-    if delta_bits.dtype != torch.int32:
-        raise TypeError(f"delta_bits has dtype {delta_bits.dtype}, expected int32")
+    _check_decode(delta_bits, ref)
     if not delta_bits.is_cuda:
         return delta_decode_plain(delta_bits, ref)
-    device = delta_bits.device
-    n = delta_bits.numel()
-    if n >= 2**31:
-        raise ValueError("the kernel indexes the plane with 32-bit ints")
-    out = torch.empty(delta_bits.shape, dtype=torch.float32, device=device)
-    if n == 0:
-        return out
-    d = delta_bits.contiguous()
-    r = _build.kernel_input("ref", ref, device)
-    with torch.cuda.device(device):
-        err = _build.library().delta_decode_launch(
-            d.data_ptr(), r.data_ptr(), out.data_ptr(), n, _build.stream_handle(device))
-    _build.check(err, "delta_decode")
-    launches["delta_decode"] += 1
-    return out
+    return _decode_launch(delta_bits, ref, 1)[0]
+
+
+def _delta_decode_pair(
+    delta_bits: torch.Tensor,  # (H, W) i32
+    ref: torch.Tensor,  # (H, W) float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``delta_decode`` written into two new planes by one launch of K4:
+    for the stream decoder, which keeps one as its reference and hands
+    out the other."""
+    _check_decode(delta_bits, ref)
+    if not delta_bits.is_cuda:
+        out = delta_decode_plain(delta_bits, ref)
+        return out, out.clone()
+    state, copy = _decode_launch(delta_bits, ref, 2)
+    return state, copy
 
 
 # ---------------------------------------------------------------------------
@@ -465,4 +543,102 @@ def unpack_dequantize(
             _ref.quant_step(lo, hi, bits), _build.stream_handle(device))
     _build.check(err, "unpack_dequantize")
     launches["unpack_dequantize"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the quantized wire format's two launches: encode and decode-and-select
+# ---------------------------------------------------------------------------
+
+
+def _quant_encode(
+    frame: torch.Tensor,  # (H, W) float, whole tiles
+    ref: torch.Tensor,  # (H, W) float
+    lo: float,
+    hi: float,
+    *,
+    bits: int = 8,
+    block_h: int = DEFAULT_BLOCK_H,
+    block_w: int = DEFAULT_BLOCK_W,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(words (H, W*bits/32) i32, mask (H/bh, W/bw) f32)`` of
+    ``quant_encode_plain``, bit for bit, in one launch: the frame's
+    packed codes, and per tile whether the dequantized frame moved more
+    than ``step/2`` from the dequantized reference.  Raises, as the
+    reference's ``encode_frame`` does, unless the plane is whole tiles."""
+    _check_pair(frame, ref, 2)
+    _check_tile(block_h, block_w)
+    ratio = _check_plane(frame, 2, bits)
+    h, w = frame.shape
+    _ref._check_blocks(h, w, block_h, block_w)
+    if not frame.is_cuda:
+        return quant_encode_plain(frame, ref, lo, hi, bits=bits, block_h=block_h,
+                                  block_w=block_w)
+    device = frame.device
+    if h * w >= 2**31:
+        raise ValueError("the kernel indexes the plane with 32-bit ints")
+    words = torch.empty((h, w // ratio), dtype=torch.int32, device=device)
+    mask = torch.empty((h // block_h, w // block_w), dtype=torch.float32, device=device)
+    if h * w == 0:
+        return words, mask.zero_()
+    f = _build.kernel_input("frame", frame, device)
+    r = _build.kernel_input("ref", ref, device)
+    step = _ref.quant_step(lo, hi, bits)
+    with torch.cuda.device(device):
+        err = _build.library().quant_encode_launch(
+            f.data_ptr(), r.data_ptr(), words.data_ptr(), mask.data_ptr(), h, w, block_h,
+            block_w, bits, lo, hi, step, step / 2, _build.stream_handle(device))
+    _build.check(err, "quant_encode")
+    launches["quant_encode"] += 1
+    return words, mask
+
+
+def _quant_decode(
+    words: torch.Tensor,  # (H, W*bits/32) i32
+    mask: torch.Tensor,  # covers the (ceil(H/bh), ceil(W/bw)) tile grid
+    ref: torch.Tensor,  # (H, W) float
+    lo: float,
+    hi: float,
+    *,
+    bits: int = 8,
+    block_h: int = DEFAULT_BLOCK_H,
+    block_w: int = DEFAULT_BLOCK_W,
+) -> torch.Tensor:
+    """``quant_decode_plain``, bit for bit, in one launch: (H, W) f32,
+    the dequantized words on tiles whose mask value is > 0 and the
+    reference's values elsewhere (a NaN mask keeps the reference).  A
+    mask larger than the tile grid is cropped, as in the reference."""
+    ratio = _ref._check_bits(bits)
+    _check_words(words, 2, "words")
+    _check_tile(block_h, block_w)
+    if ref.dim() != 2:
+        raise ValueError(f"ref {tuple(ref.shape)}: expected a plane of shape (H, W)")
+    h, w = ref.shape
+    if words.shape != (h, w // ratio) or w % ratio:
+        raise ValueError(f"words {tuple(words.shape)} and ref {tuple(ref.shape)}: expected "
+                         f"(H, W * {bits} / 32) words for an (H, W) plane")
+    tiles = (-(-h // block_h), -(-w // block_w))
+    if mask.dim() != 2 or mask.shape[0] < tiles[0] or mask.shape[1] < tiles[1]:
+        raise ValueError(f"mask {tuple(mask.shape)} does not cover the {tiles} tile grid")
+    if not words.is_cuda:
+        return quant_decode_plain(words, mask, ref, lo, hi, bits=bits, block_h=block_h,
+                                  block_w=block_w)
+    device = words.device
+    if h * w >= 2**31:
+        raise ValueError("the kernel indexes the plane with 32-bit ints")
+    out = torch.empty((h, w), dtype=torch.float32, device=device)
+    if h * w == 0:
+        return out
+    if mask.device != device:
+        raise ValueError(f"mask is on {mask.device}, expected {device}")
+    m = mask.to(torch.float32)
+    r = _build.kernel_input("ref", ref, device)
+    ws = words.contiguous()
+    with torch.cuda.device(device):
+        err = _build.library().quant_decode_launch(
+            ws.data_ptr(), m.data_ptr(), r.data_ptr(), out.data_ptr(), h, w, block_h,
+            block_w, m.stride(0), m.stride(1), bits, lo, _ref.quant_step(lo, hi, bits),
+            _build.stream_handle(device))
+    _build.check(err, "quant_decode")
+    launches["quant_decode"] += 1
     return out

@@ -5,13 +5,15 @@ the CUDA kernels' wrappers; this module composes the wrappers into what
 the uplink runs:
 
 * the quantized-delta wire format, :func:`encode_frame` and
-  :func:`decode_frame`: on CUDA tensors K6, K7, K6, K7 and then K3's
-  mask-only launch at threshold ``step/2`` for the encode, K7 and a
-  mask select for the decode, the reference's composition; on CPU
-  tensors the same composition of the plain versions;
+  :func:`decode_frame`: one launch each on CUDA tensors (the encode's
+  words and mask; the decode's dequantization and mask select); on CPU
+  tensors the reference's composition of the plain versions (K6, K7,
+  K6, K7 and K3's mask at threshold ``step/2``; K7 and the select);
 * the sequenced stream machines of keyframes and XOR deltas with
   loss-driven resync (:class:`DeltaStreamEncoder`,
-  :class:`DeltaStreamDecoder`; K3 and K4 on the card);
+  :class:`DeltaStreamDecoder`; on the card one launch a delta frame
+  each: K3 writing the delta and the new reference, K4 writing the
+  decoder's state and the copy it returns);
 * :func:`change_density`, the measured signal behind the codec model
   (K3b's mask-only launch on the card).
 """
@@ -43,18 +45,13 @@ def encode_frame(
     block_w: int = DEFAULT_BLOCK_W,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``codec.ref.encode_frame`` through the kernels: returns ``(words
-    (H, W*bits/32) i32, mask (ceil(H/bh), ceil(W/bw)) f32)``.  Both
-    planes quantize to ``bits``-wide codes, and the mask is the
-    value-space delta of the dequantized planes at threshold
-    ``step/2``, so a tile is changed exactly when one of its codes is."""
-    words = kernels.quantize_pack(frame, lo, hi, bits=bits)
-    recon = kernels.unpack_dequantize(words, lo, hi, bits=bits)
-    ref_recon = kernels.unpack_dequantize(
-        kernels.quantize_pack(ref, lo, hi, bits=bits), lo, hi, bits=bits)
-    step = _ref.quant_step(lo, hi, bits)
-    mask = kernels._delta_mask(recon, ref_recon, threshold=step / 2,
-                               block_h=block_h, block_w=block_w)
-    return words, mask
+    (H, W*bits/32) i32, mask (H/bh, W/bw) f32)``.  Both planes quantize
+    to ``bits``-wide codes, and the mask is the value-space delta of the
+    dequantized planes at threshold ``step/2``, so a tile is changed
+    exactly when one of its codes is.  Raises ``ValueError``, as the
+    reference does, unless the plane is whole (block_h, block_w) tiles."""
+    return kernels._quant_encode(frame, ref, lo, hi, bits=bits, block_h=block_h,
+                                 block_w=block_w)
 
 
 def decode_frame(
@@ -68,11 +65,12 @@ def decode_frame(
     block_h: int = DEFAULT_BLOCK_H,
     block_w: int = DEFAULT_BLOCK_W,
 ) -> torch.Tensor:
-    """``codec.ref.decode_frame`` through K7: changed tiles dequantize
-    their shipped codes (error <= step/2), unchanged tiles keep the
-    reference.  The mask select is plain torch."""
-    recon = kernels.unpack_dequantize(words, lo, hi, bits=bits)
-    return _ref.select_tiles(recon, mask, ref, block_h, block_w)
+    """``codec.ref.decode_frame`` through the kernels: changed tiles
+    dequantize their shipped codes (error <= step/2), unchanged tiles
+    keep the reference.  The mask covers the tile grid; a larger one is
+    cropped, as in the reference."""
+    return kernels._quant_decode(words, mask, ref, lo, hi, bits=bits, block_h=block_h,
+                                 block_w=block_w)
 
 
 # ---------------------------------------------------------------------------
@@ -101,10 +99,11 @@ class DeltaStreamEncoder:
     ``resync_bound`` packets, so a receiver that lost its reference is
     never stranded longer than the bound.
 
-    Frames stay on their device: a CUDA frame is encoded by the kernels
-    K3 and K4.  The encoder keeps its own copy of each reference and a
-    keyframe packet carries another, so neither the caller's frame nor
-    the packet aliases the encoder's state.
+    Frames stay on their device: a CUDA frame is encoded by one launch
+    of K3 that also writes the next reference.  The encoder keeps its
+    own copy of each reference and a keyframe packet carries another, so
+    neither the caller's frame nor the packet aliases the encoder's
+    state.
     """
 
     def __init__(
@@ -156,17 +155,16 @@ class DeltaStreamEncoder:
             return StreamPacket(seq, "key", seq, self._ref.clone())
         h, w = frame.shape
         _ref._check_blocks(h, w, self.block_h, self.block_w)
-        delta_bits, _ = kernels.delta_encode(
+        # the encoder tracks the RECEIVER's reconstruction (unchanged
+        # tiles keep the old reference), not the source frame: the
+        # closed-loop discipline that stops drift from accumulating
+        delta_bits, _, self._ref = kernels._delta_encode_recon(
             frame,
             self._ref,
             threshold=self.threshold,
             block_h=self.block_h,
             block_w=self.block_w,
         )
-        # the encoder tracks the RECEIVER's reconstruction (unchanged
-        # tiles keep the old reference), not the source frame: the
-        # closed-loop discipline that stops drift from accumulating
-        self._ref = kernels.delta_decode(delta_bits, self._ref)
         self._since_key += 1
         if self._deltas_left is not None:
             self._deltas_left -= 1
@@ -179,9 +177,10 @@ class DeltaStreamDecoder:
     ``decode`` returns the reconstructed frame, or None (a NACK) when a
     delta references a reconstruction this decoder does not hold: a
     stale or missing reference must never be decoded against.  It
-    decodes on the payload's device (K4 for CUDA tensors).  It keeps its
-    own copy of each reference and returns another, so changing a
-    decoded frame in place cannot corrupt the base of the next delta.
+    decodes on the payload's device (for CUDA tensors one launch of K4,
+    which writes both copies below).  It keeps its own copy of each
+    reference and returns another, so changing a decoded frame in place
+    cannot corrupt the base of the next delta.
     """
 
     def __init__(self) -> None:
@@ -199,10 +198,10 @@ class DeltaStreamDecoder:
         if self._ref is None or packet.ref_seq != self._ref_seq:
             self.nacks += 1
             return None
-        self._ref = kernels.delta_decode(packet.payload, self._ref)
+        self._ref, out = kernels._delta_decode_pair(packet.payload, self._ref)
         self._ref_seq = packet.seq
         self.decoded += 1
-        return self._ref.clone()
+        return out
 
 
 def change_density(

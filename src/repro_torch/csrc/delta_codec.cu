@@ -42,11 +42,22 @@
 //     which cannot raise a max of absolute values, so the masks are the
 //     same, and the delta is written straight at (H, W).
 //   * A mask-only launch (delta == nullptr) is the same kernel built
-//     without the XOR's store: callers that read only the mask
-//     (wire.encode_frame, wire.change_density) move two planes instead
-//     of three.
+//     without the XOR's store: a caller that reads only the mask
+//     (wire.change_density) moves two planes instead of three.
+//   * A launch with a reconstruction (recon != nullptr) is the same kernel
+//     built with a second store from the same registers: changed ? bits(f)
+//     : bits(r), which is K4's decode of this delta against r bit for bit
+//     (NaN payloads and signed zeros included, as the bits are stored, not
+//     floats).  The stream encoder's closed loop takes its next reference
+//     from it instead of launching K4.
 //   * K3 is the B = 1 launch of the same kernel: row b of K3b equals K3
 //     on client b bit for bit.
+//
+// K4 is one word a thread.  At the port's 128x128 planes it runs at the
+// card's floor for a launch; a 16-byte vector body was slower there and
+// faster only on planes of 240x320 and up, which no path runs.  A second
+// output (out2 != nullptr) receives the same bits: the stream decoder's
+// state and the copy it hands out, from one read of the inputs.
 
 #include <cuda_runtime.h>
 
@@ -105,12 +116,8 @@ __device__ __forceinline__ void load_chunk(const float* __restrict__ f,
   }
 }
 
-__device__ __forceinline__ void store_chunk(int* __restrict__ d, const int (&off)[4], bool vector,
-                                            bool changed, const float (&fv)[4],
-                                            const float (&rv)[4]) {
-  int x[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) x[j] = changed ? (__float_as_int(fv[j]) ^ __float_as_int(rv[j])) : 0;
+__device__ __forceinline__ void store_words(int* __restrict__ d, const int (&off)[4], bool vector,
+                                            const int (&x)[4]) {
   if (vector) {
     if (off[0] >= 0) *reinterpret_cast<int4*>(d + off[0]) = make_int4(x[0], x[1], x[2], x[3]);
   } else {
@@ -121,11 +128,32 @@ __device__ __forceinline__ void store_chunk(int* __restrict__ d, const int (&off
   }
 }
 
-template <bool kWriteDelta>
+__device__ __forceinline__ void store_chunk(int* __restrict__ d, const int (&off)[4], bool vector,
+                                            bool changed, const float (&fv)[4],
+                                            const float (&rv)[4]) {
+  int x[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x[j] = changed ? (__float_as_int(fv[j]) ^ __float_as_int(rv[j])) : 0;
+  store_words(d, off, vector, x);
+}
+
+// The new reference: the frame's bits on a changed tile, the old
+// reference's elsewhere.
+__device__ __forceinline__ void store_recon(int* __restrict__ d, const int (&off)[4], bool vector,
+                                            bool changed, const float (&fv)[4],
+                                            const float (&rv)[4]) {
+  int x[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x[j] = changed ? __float_as_int(fv[j]) : __float_as_int(rv[j]);
+  store_words(d, off, vector, x);
+}
+
+template <bool kWriteDelta, bool kWriteRecon = false>
 __global__ void __launch_bounds__(kThreads)
 delta_encode_kernel(const float* __restrict__ frames,  // (B, H, W)
                     const float* __restrict__ refs,    // (B, H, W)
                     int* __restrict__ delta,           // (B, H, W); unused if !kWriteDelta
+                    int* __restrict__ recon,           // (B, H, W) float bits; if kWriteRecon
                     float* __restrict__ mask,          // (B, tiles_h, tiles_w)
                     int height, int width, int block_h, int block_w,
                     int tiles_h, int tiles_w, float threshold, bool vector) {
@@ -172,18 +200,25 @@ delta_encode_kernel(const float* __restrict__ frames,  // (B, H, W)
 
   int* d = delta + plane;
   store_chunk(d, off, vector, changed, fv, rv);
+  if constexpr (kWriteRecon) store_recon(recon + plane, off, vector, changed, fv, rv);
   for (int first = kChunk; first < pixels; first += kChunk) {
     chunk_offsets(first, pixels, cols, width, row0, col0, vector, off);
     load_chunk(f, r, off, vector, fv, rv);
     store_chunk(d, off, vector, changed, fv, rv);
+    if constexpr (kWriteRecon) store_recon(recon + plane, off, vector, changed, fv, rv);
   }
 }
 
+// out = ref XOR delta, on float bits; the same into out2 unless it is null.
 __global__ void __launch_bounds__(kDecodeThreads)
-delta_decode_kernel(const int* __restrict__ delta, const float* __restrict__ ref,
-                    float* __restrict__ out, int n) {
+delta_decode_kernel(const int* __restrict__ delta, const int* __restrict__ ref,
+                    int* __restrict__ out, int* __restrict__ out2, int n) {
   const int i = blockIdx.x * kDecodeThreads + threadIdx.x;
-  if (i < n) out[i] = __int_as_float(__float_as_int(ref[i]) ^ delta[i]);
+  if (i < n) {
+    const int o = ref[i] ^ delta[i];
+    out[i] = o;
+    if (out2 != nullptr) out2[i] = o;
+  }
 }
 
 }  // namespace
@@ -191,36 +226,49 @@ delta_decode_kernel(const int* __restrict__ delta, const float* __restrict__ ref
 // K3 (num_clients = 1) and K3b on `stream`.  The tile grid is
 // ceil(height / block_h) x ceil(width / block_w) per client; the caller
 // keeps num_clients * height * width below 2^31.  delta == nullptr
-// launches the mask-only kernel.  Returns cudaGetLastError().
+// launches the mask-only kernel; recon != nullptr (with a delta) the
+// kernel that also writes the new reference.  Returns
+// cudaErrorInvalidValue for a recon without a delta, else
+// cudaGetLastError().
 extern "C" int delta_encode_launch(const float* frames, const float* refs,
-                                   int* delta, float* mask, int num_clients,
-                                   int height, int width, int block_h,
-                                   int block_w, float threshold, void* stream) {
+                                   int* delta, float* recon, float* mask,
+                                   int num_clients, int height, int width,
+                                   int block_h, int block_w, float threshold,
+                                   void* stream) {
+  if (recon != nullptr && delta == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles_h = (height + block_h - 1) / block_h;
   const int tiles_w = (width + block_w - 1) / block_w;
   const uintptr_t addresses = reinterpret_cast<uintptr_t>(frames) |
                               reinterpret_cast<uintptr_t>(refs) |
-                              reinterpret_cast<uintptr_t>(delta);
+                              reinterpret_cast<uintptr_t>(delta) |
+                              reinterpret_cast<uintptr_t>(recon);
   const bool vector = width % 4 == 0 && block_w % 4 == 0 && (addresses & 15) == 0;
   const dim3 grid(num_clients * tiles_h * tiles_w);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (delta != nullptr) {
+  int* recon_bits = reinterpret_cast<int*>(recon);
+  if (recon != nullptr) {
+    delta_encode_kernel<true, true><<<grid, kThreads, 0, s>>>(
+        frames, refs, delta, recon_bits, mask, height, width, block_h, block_w, tiles_h,
+        tiles_w, threshold, vector);
+  } else if (delta != nullptr) {
     delta_encode_kernel<true><<<grid, kThreads, 0, s>>>(
-        frames, refs, delta, mask, height, width, block_h, block_w, tiles_h, tiles_w,
-        threshold, vector);
+        frames, refs, delta, recon_bits, mask, height, width, block_h, block_w, tiles_h,
+        tiles_w, threshold, vector);
   } else {
     delta_encode_kernel<false><<<grid, kThreads, 0, s>>>(
-        frames, refs, delta, mask, height, width, block_h, block_w, tiles_h, tiles_w,
-        threshold, vector);
+        frames, refs, delta, recon_bits, mask, height, width, block_h, block_w, tiles_h,
+        tiles_w, threshold, vector);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4 over n words on `stream`.  Returns cudaGetLastError().
-extern "C" int delta_decode_launch(const int* delta, const float* ref,
-                                   float* out, int n, void* stream) {
-  delta_decode_kernel<<<(n + kDecodeThreads - 1) / kDecodeThreads,
-                        kDecodeThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      delta, ref, out, n);
+// K4 over n words on `stream`, into out and, unless it is null, out2.
+// Returns cudaGetLastError().
+extern "C" int delta_decode_launch(const int* delta, const float* ref, float* out,
+                                   float* out2, int n, void* stream) {
+  delta_decode_kernel<<<(n + kDecodeThreads - 1) / kDecodeThreads, kDecodeThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      delta, reinterpret_cast<const int*>(ref), reinterpret_cast<int*>(out),
+      reinterpret_cast<int*>(out2), n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -179,10 +179,19 @@ def _run_stream(pkg, frames, enc_kwargs, lost=()):
     ("no_loss", dict(keyframe_interval=4, resync_bound=2), ()),
     ("two_losses_lossy", dict(keyframe_interval=6, resync_bound=2, threshold=0.01),
      (2, 9)),
+    ("specials_lossy", dict(keyframe_interval=7, resync_bound=3, threshold=0.01), (5,)),
 ])
 def test_stream_machines_match_reference(schedule):
-    _name, kwargs, lost = schedule
+    name, kwargs, lost = schedule
     frames = _sequence(n=12 if not lost else 20)
+    if name == "specials_lossy":
+        # NaN payloads and signed zeros in the references the encoder keeps:
+        # a tile holding a NaN never changes, and one whose only move is
+        # -0.0 against +0.0 does not either, so both carry the old bits on
+        for t, f in enumerate(frames):
+            f[2, 3] = np.float32(np.nan) if t % 2 else np.int32(-4194305).view(np.float32)
+            f[9, 5] = -0.0 if t % 3 else 0.0
+            f[20, 40 + t] += np.float32(0.001 * t)  # below the threshold: drifts
     j_enc, j_dec, j_log = _run_stream(jcr, frames, kwargs, lost)
     t_enc, t_dec, t_log = _run_stream(tcodec, frames, kwargs, lost)
     assert [e[:3] for e in t_log] == [e[:3] for e in j_log]  # seq, kind, ref_seq

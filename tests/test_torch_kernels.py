@@ -197,6 +197,74 @@ def test_quant_wrappers_take_the_plain_versions_on_cpu():
     assert _counts() == before
 
 
+def _old_quant_encode(frame, ref, lo, hi, bits, block_h, block_w):
+    """encode_frame as it ran before its one launch: K6, K7, K6, K7 and
+    K3's mask-only launch at threshold step/2."""
+    words = ck.quantize_pack(frame, lo, hi, bits=bits)
+    recon = ck.unpack_dequantize(words, lo, hi, bits=bits)
+    ref_recon = ck.unpack_dequantize(ck.quantize_pack(ref, lo, hi, bits=bits), lo, hi,
+                                     bits=bits)
+    mask = ck._delta_mask(recon, ref_recon, threshold=cref.quant_step(lo, hi, bits) / 2,
+                          block_h=block_h, block_w=block_w)
+    return words, mask
+
+
+def _old_quant_decode(words, mask, ref, lo, hi, bits, block_h, block_w):
+    """decode_frame as it ran before its one launch: K7 and the select."""
+    return cref.select_tiles(ck.unpack_dequantize(words, lo, hi, bits=bits), mask, ref,
+                             block_h, block_w)
+
+
+def test_fused_codec_wrappers_take_the_plain_versions_on_cpu():
+    """On the CPU the one-launch encode and decode of the quantized
+    format, K3 with the reconstruction and the two-output K4 run their
+    plain compositions, exactly, and count no launch; the reconstruction
+    and both of K4's outputs are new tensors."""
+    before = _counts()
+    x = _quant_planes(16, 256, 0.1, 10.0, 8, "cpu", b=2)
+    for bits in (16, 8, 4, 2):
+        words, mask = ck._quant_encode(x[1], x[0], 0.1, 10.0, bits=bits)
+        old_words, old_mask = _old_quant_encode(x[1], x[0], 0.1, 10.0, bits, 8, 128)
+        assert torch.equal(words, old_words) and _bit_equal(mask, old_mask)
+        out = ck._quant_decode(words, mask, x[0], 0.1, 10.0, bits=bits)
+        assert _bit_equal(out, _old_quant_decode(words, mask, x[0], 0.1, 10.0, bits, 8, 128))
+        assert _bit_equal(out, ck.quant_decode_plain(words, mask, x[0], 0.1, 10.0, bits=bits))
+    frame, ref = _codec_pair(16, 256, "cpu")
+    delta, mask, recon = ck._delta_encode_recon(frame, ref, threshold=0.01)
+    want_delta, want_mask = ck.delta_encode(frame, ref, threshold=0.01)
+    assert torch.equal(delta, want_delta) and _bit_equal(mask, want_mask)
+    assert _bit_equal(recon, ck.delta_decode(delta, ref))
+    state, copy = ck._delta_decode_pair(delta, ref)
+    assert _bit_equal(state, recon) and _bit_equal(copy, recon)
+    assert len({recon.data_ptr(), state.data_ptr(), copy.data_ptr(), ref.data_ptr()}) == 4
+    assert _counts() == before
+
+
+def test_fused_codec_wrappers_validate_their_inputs():
+    """The one-launch encode takes whole tiles only, as the reference's
+    encode_frame; the decode a words plane that fits the reference and a
+    mask that covers the tile grid."""
+    x = _quant_planes(16, 256, 0.0, 1.0, 8, "cpu", b=2)
+    with pytest.raises(ValueError, match="not divisible"):
+        ck._quant_encode(x[1], x[0], 0.0, 1.0, block_w=96)
+    with pytest.raises(ValueError, match="pack ratio"):
+        ck._quant_encode(x[1, :, :254], x[0, :, :254], 0.0, 1.0, block_w=127)
+    with pytest.raises(ValueError):
+        ck._quant_encode(x[1], x[0, :8], 0.0, 1.0)
+    words, mask = ck._quant_encode(x[1], x[0], 0.0, 1.0)
+    with pytest.raises(ValueError, match="tile grid"):
+        ck._quant_decode(words, mask[:1], x[0], 0.0, 1.0)
+    with pytest.raises(ValueError, match="words"):
+        ck._quant_decode(words[:, :10], mask, x[0], 0.0, 1.0)
+    with pytest.raises(TypeError):
+        ck._quant_decode(words.long(), mask, x[0], 0.0, 1.0)
+    delta, _ = ck.delta_encode(x[1], x[0])
+    with pytest.raises(ValueError):
+        ck._delta_decode_pair(delta, x[0, :8])
+    with pytest.raises(ValueError):
+        ck._delta_encode_recon(x[1], x[0], block_w=0)
+
+
 def test_batched_wrappers_reject_bad_path_and_shapes():
     upd = _batched_update_inputs(2, 5, 27, "cpu", per_swarm_bounds=False)
     with pytest.raises(ValueError, match="unknown path"):
@@ -548,3 +616,178 @@ def test_delta_mask_launch_matches_full_launch(cuda, h, w, threshold, block):
         planes = (f.cpu(), r.cpu()) if f.dim() == 3 else (f.cpu()[None], r.cpu()[None])
         _, plain = ck.delta_encode_plain(*planes, **tile)
         assert _bit_equal(mask.cpu(), plain if f.dim() == 3 else plain[0])
+
+
+# (h, w, block_h, block_w, bits) of the one-launch quantized encode and
+# decode: 8x128 tiles at 128x128; 240x320, which 8x128 tiles do not
+# divide, on whole 8x64 tiles (and 8x128 for the decode alone, below);
+# 9x130 tiles, where at 8 and 4 bits a word straddles two tiles; at 1 bit,
+# 8x128 tiles, where 8 lanes build one word, and 8x48 tiles, where a word
+# straddles two tiles
+QUANT_TILE_CASES = ([(128, 128, 8, 128, b) for b in (16, 8, 4, 2, 1)]
+                    + [(240, 320, 8, 64, b) for b in (16, 8, 4, 2)]
+                    + [(18, 260, 9, 130, 16), (18, 260, 9, 130, 8), (18, 520, 9, 130, 4),
+                       (16, 192, 8, 48, 1)])
+
+
+def _quant_pair(h, w, lo, hi, bits, device, block_h, seed):
+    """(frame, ref): the ref from ``_quant_planes`` (ties, NaN, +-inf,
+    -0.0 in row 1), the frame moved by half the range in columns 130-133
+    of rows 0-3, in columns 126-129 of the second tile row and in the last
+    pixel; a NaN against -inf and +inf against hi + 1 in the last tile row
+    (the same codes, so no change)."""
+    ref = _quant_planes(h, w, lo, hi, bits, device, b=1, seed=seed)[0]
+    frame = ref.clone()
+    half = (hi - lo) / 2
+    frame[:4, 130:134] += half
+    frame[block_h:block_h + 4, 126:130] += half
+    frame[-1, -1] += half
+    frame[-2, 1], ref[-2, 1] = float("nan"), float("-inf")
+    frame[-2, 2], ref[-2, 2] = float("inf"), hi + 1.0
+    # a NaN with a payload in both (code 0, so no change): the decode
+    # copies the ref's bits where the tile is unchanged
+    frame.view(torch.int32)[-3, 7] = ref.view(torch.int32)[-3, 7] = -4194305
+    return frame, ref
+
+
+def _off_alignment(t):
+    """A copy of t whose data starts one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+def _launch_delta(before):
+    return {k: v - before[k] for k, v in ck.launches.items() if v != before[k]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w,block_h,block_w,bits", QUANT_TILE_CASES)
+def test_quant_encode_and_decode_launches_match_composition(cuda, h, w, block_h, block_w,
+                                                            bits):
+    """encode_frame and decode_frame are one launch each on the card and
+    equal, bit for bit, the composition of standalone kernels they
+    replace and the CPU's plain composition: on aligned planes, on planes
+    one float off 16-byte alignment (the scalar paths), and for the
+    decode with a mask one tile larger than the grid and with a NaN mask
+    value."""
+    lo, hi = 0.1, 10.0
+    tile = dict(bits=bits, block_h=block_h, block_w=block_w)
+    frame, ref = _quant_pair(h, w, lo, hi, bits, cuda, block_h, seed=bits + w)
+    cw, cm = wire.encode_frame(frame.cpu(), ref.cpu(), lo, hi, **tile)
+    assert 0 < float(cm.sum()) < cm.numel()
+    for f, r in ((frame, ref), (_off_alignment(frame), _off_alignment(ref))):
+        before = dict(ck.launches)
+        words, mask = wire.encode_frame(f, r, lo, hi, **tile)
+        out = wire.decode_frame(words, mask, r, lo, hi, **tile)
+        assert _launch_delta(before) == {"quant_encode": 1, "quant_decode": 1}
+        assert torch.equal(words.cpu(), cw) and _bit_equal(mask.cpu(), cm)
+        old_words, old_mask = _old_quant_encode(f, r, lo, hi, bits, block_h, block_w)
+        assert torch.equal(words, old_words) and _bit_equal(mask, old_mask)
+        big = torch.nn.functional.pad(mask, (0, 1, 0, 1), value=1.0)
+        odd = mask.clone()
+        odd[0, 0] = float("nan")
+        for m in (mask, big, odd):
+            got = out if m is mask else wire.decode_frame(words, m, r, lo, hi, **tile)
+            assert _bit_equal(got, _old_quant_decode(words, m, r, lo, hi, bits, block_h,
+                                                     block_w))
+            assert _bit_equal(got.cpu(), wire.decode_frame(cw, m.cpu(), ref.cpu(), lo, hi,
+                                                           **tile))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [16, 8, 4, 2])
+def test_quant_decode_launch_on_ragged_tiles_matches_composition(cuda, bits):
+    """At 240x320 on 8x128 tiles (a ragged last column of tiles) the
+    encode raises before any launch, as the reference's does, and the
+    one-launch decode equals K7 and the select on the ceil-grid mask."""
+    lo, hi = 0.1, 10.0
+    frame, ref = _quant_pair(240, 320, lo, hi, bits, cuda, 8, seed=bits)
+    before = dict(ck.launches)
+    with pytest.raises(ValueError, match="not divisible"):
+        wire.encode_frame(frame, ref, lo, hi, bits=bits)
+    assert ck.launches == before
+    words, mask = _old_quant_encode(frame, ref, lo, hi, bits, 8, 128)
+    assert mask.shape == (30, 3) and 0 < float(mask.sum()) < mask.numel()
+    for r in (ref, _off_alignment(ref)):
+        out = wire.decode_frame(words, mask, r, lo, hi, bits=bits)
+        assert _bit_equal(out, _old_quant_decode(words, mask, r, lo, hi, bits, 8, 128))
+        assert _bit_equal(out.cpu(), wire.decode_frame(words.cpu(), mask.cpu(), ref.cpu(),
+                                                       lo, hi, bits=bits))
+
+
+RECON_CASES = [(128, 128, 8, 128), (240, 322, 8, 128), (240, 320, 32, 64), (240, 322, 9, 130)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("threshold", [0.0, 0.01])
+@pytest.mark.parametrize("h,w,block_h,block_w", RECON_CASES)
+def test_delta_encode_recon_matches_k3_then_k4(cuda, h, w, block_h, block_w, threshold):
+    """K3 with the reconstruction equals K3 then K4 and the CPU's plain
+    versions bit for bit (the NaN and signed-zero tiles keep the old
+    reference's bits), in one launch counted as K3's, on aligned planes,
+    at a width not a multiple of 4 and one float off alignment (the
+    scalar path), and on tiles of over 1,024 pixels."""
+    frame, ref = _codec_pair(h, w, cuda, seed=h + w)
+    tile = dict(threshold=threshold, block_h=block_h, block_w=block_w)
+    for f, r in ((frame, ref), (_off_alignment(frame), _off_alignment(ref))):
+        before = dict(ck.launches)
+        delta, mask, recon = ck._delta_encode_recon(f, r, **tile)
+        assert _launch_delta(before) == {"delta_encode": 1, "delta_encode_recon": 1}
+        k3_delta, k3_mask = ck.delta_encode(f, r, **tile)
+        assert torch.equal(delta, k3_delta) and _bit_equal(mask, k3_mask)
+        assert _bit_equal(recon, ck.delta_decode(delta, r))
+        pd, pm, pr = ck._delta_encode_recon(f.cpu(), r.cpu(), **tile)
+        assert torch.equal(delta.cpu(), pd) and _bit_equal(mask.cpu(), pm)
+        assert _bit_equal(recon.cpu(), pr)
+        assert recon.data_ptr() != r.data_ptr() and mask[0, 0] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w", [(128, 128), (240, 320), (240, 322)])
+def test_delta_decode_pair_matches_k4(cuda, h, w):
+    """The two-output K4 writes K4's result twice in one launch, bit for
+    bit against K4 and the plain version on the CPU: on aligned planes,
+    one float off alignment and at an odd word count."""
+    frame, ref = _codec_pair(h, w, cuda, seed=h + w)
+    delta, _ = ck.delta_encode(frame, ref, threshold=0.01)
+    odd = (delta[:-1, :-1].contiguous(), ref[:-1, :-1].contiguous())
+    for d, r in ((delta, ref), (_off_alignment(delta), _off_alignment(ref)), odd):
+        before = dict(ck.launches)
+        state, copy = ck._delta_decode_pair(d, r)
+        assert _launch_delta(before) == {"delta_decode": 1, "delta_decode_pair": 1}
+        want = ck.delta_decode_plain(d.cpu(), r.cpu())
+        assert _bit_equal(state.cpu(), want) and _bit_equal(copy.cpu(), want)
+        assert _bit_equal(ck.delta_decode(d, r), state)
+        assert state.data_ptr() != copy.data_ptr()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("threshold", [0.0, 0.01])
+def test_stream_machines_on_the_card_launch_once_a_delta(cuda, threshold):
+    """On the card each delta frame is one launch of K3 that also writes
+    the encoder's next reference and one two-output launch of K4 in the
+    decoder; the decoded frames equal the CPU's stream bit for bit and
+    stay copies."""
+    rng = np.random.default_rng(4)
+    base = rng.normal(0.5, 0.1, (32, 256)).astype(np.float32)
+    frames = []
+    for t in range(9):
+        f = base.copy()
+        f[(t * 3) % 32: (t * 3) % 32 + 4, :16] += 0.05
+        f[20, 200 + t] += 0.001 * t
+        frames.append(torch.from_numpy(f))
+    card = (wire.DeltaStreamEncoder(keyframe_interval=5, threshold=threshold),
+            wire.DeltaStreamDecoder())
+    host = (wire.DeltaStreamEncoder(keyframe_interval=5, threshold=threshold),
+            wire.DeltaStreamDecoder())
+    for f in frames:
+        before = dict(ck.launches)
+        packet = card[0].encode(f.to(cuda))
+        out = card[1].decode(packet)
+        want = host[1].decode(host[0].encode(f))
+        if packet.kind == "delta":
+            assert _launch_delta(before) == {"delta_encode": 1, "delta_encode_recon": 1,
+                                             "delta_decode": 1, "delta_decode_pair": 1}
+        assert out.is_cuda and _bit_equal(out.cpu(), want)
+        out.add_(1.0)  # the decoder's state is another tensor

@@ -196,6 +196,74 @@ def test_encode_and_decode_frame_match_reference(bits, lo, hi, kind):
     assert tcodec.encode_frame is twire.encode_frame
 
 
+@pytest.mark.parametrize("h,w", [(8, 132), (12, 128)])
+def test_encode_frame_rejects_planes_of_partial_tiles(h, w):
+    """A plane that is not a whole number of (8, 128) tiles: the
+    reference's encode_frame raises, and so do the port's, on the plain
+    versions here (on the card, before any launch)."""
+    rng = np.random.default_rng(h + w)
+    frame, ref_plane = rng.uniform(0.0, 1.0, (2, h, w)).astype(np.float32)
+    with pytest.raises(ValueError, match="not divisible"):
+        jcr.encode_frame(jnp.asarray(frame), jnp.asarray(ref_plane), 0.0, 1.0, bits=16)
+    for pkg in (tcr, twire):
+        with pytest.raises(ValueError, match="not divisible"):
+            pkg.encode_frame(torch.from_numpy(frame), torch.from_numpy(ref_plane), 0.0, 1.0,
+                             bits=16)
+
+
+def _moved_pair(h, w, lo, hi, seed):
+    """(frame, ref) over 10% beyond [lo, hi] with NaN and +-inf in row 1
+    of both (they quantize alike).  The frame moves by 5% of the range
+    in its last pixel, in columns 130-133 of rows 0-3 and in columns
+    126-129 of rows 9-12: on 9x130 tiles the two sides of the words that
+    straddle column 130, each with the tile across the edge unchanged."""
+    rng = np.random.default_rng(seed)
+    span = hi - lo
+    ref_plane = rng.uniform(lo - 0.1 * span, hi + 0.1 * span, (h, w)).astype(np.float32)
+    ref_plane[1, 5:8] = [np.nan, np.inf, -np.inf]
+    frame = ref_plane.copy()
+    frame[:4, 130:134] += np.float32(0.05 * span)
+    frame[9:13, 126:130] += np.float32(0.05 * span)
+    frame[-1, -1] += np.float32(0.05 * span)
+    return frame, ref_plane
+
+
+# (h, w, bits, (block_h, block_w)): at 8 bits on 9x130 tiles the word of
+# pixels 128-131 straddles two tiles, at 4 bits on 9x130 tiles the words
+# of pixels 128-135 and 256-263; 4 and 2 bits on 8x128 tiles share a word
+# among 2 and 4 lanes on the card; at 1 bit on 8x48 tiles the words of
+# pixels 32-63 and 128-159 straddle two tiles
+TILE_SHAPES = [(18, 260, 8, (9, 130)), (18, 520, 4, (9, 130)), (72, 130, 16, (9, 130)),
+               (16, 256, 4, (8, 128)), (16, 256, 2, (8, 128)), (16, 192, 1, (8, 48))]
+
+
+@pytest.mark.parametrize("h,w,bits,block", TILE_SHAPES)
+def test_encode_and_decode_frame_match_reference_on_tile_shapes(h, w, bits, block):
+    """encode_frame/decode_frame of the port's oracle and of wire equal
+    the reference's bit for bit on whole tiles of other shapes, straddling
+    words included; decode_frame also with a NaN mask value (the tile
+    keeps the reference) and with a mask one tile larger than the grid
+    (cropped)."""
+    lo, hi = 0.1, 10.0
+    bh, bw = block
+    frame, ref_plane = _moved_pair(h, w, lo, hi, seed=h + w + bits)
+    tile = dict(bits=bits, block_h=bh, block_w=bw)
+    jw, jm = jcr.encode_frame(jnp.asarray(frame), jnp.asarray(ref_plane), lo, hi, **tile)
+    assert 0 < float(jnp.sum(jm)) < jm.size
+    big = np.pad(np.array(jm), ((0, 1), (0, 1)), constant_values=1.0)
+    odd = np.array(jm)
+    odd[0, 0] = np.nan
+    f, r = torch.from_numpy(frame), torch.from_numpy(ref_plane)
+    for pkg in (tcr, twire):
+        tw, tm = pkg.encode_frame(f, r, lo, hi, **tile)
+        assert np.array_equal(tw.numpy(), np.asarray(jw))
+        assert tm.dtype == torch.float32 and np.array_equal(tm.numpy(), np.asarray(jm))
+        for mask in (np.array(jm), big, odd):
+            jo = jcr.decode_frame(jw, jnp.asarray(mask), jnp.asarray(ref_plane), lo, hi, **tile)
+            to = pkg.decode_frame(tw, torch.from_numpy(mask), r, lo, hi, **tile)
+            assert np.array_equal(_bits(to.numpy()), _bits(jo))
+
+
 def test_composed_format_realizes_the_model_ratio():
     """tests/test_codec.py's identity for the port: exact wire bytes of a
     quantized delta frame are the header, change_density * bits/32 of the
