@@ -57,8 +57,9 @@ Phases (any failure exits non-zero and prints no result line):
      client 2's frame alone (row 2 NaN, every other row equal to K1); the
      fused launches timed against 4 solo launches (per_client_vs_solo);
  10. the quantized uplink: the clip through ``encode_frame`` ->
-     ``decode_frame`` (one launch each a delta frame; K6 and K7 for the
-     keyframe) in a closed loop at 16 and 8 bits over (0, 10 m): every
+     ``decode_frame`` (one launch each a delta frame; for the keyframe
+     one launch of K6 that also writes K7's reconstruction) in a closed
+     loop at 16 and 8 bits over (0, 10 m): every
      pixel within step/2 + 2 ulp(10) of the clipped frame, each delta
      frame's exact wire bytes within 8 B of the reference's identity,
      each shipped words, mask and decoded frame equal to the composition
@@ -67,27 +68,34 @@ Phases (any failure exits non-zero and prints no result line):
      one-launch encode and decode also at bits 16, 8, 4 and 2 on 8x128,
      8x64 and straddling 9x130 tiles, with NaN and oversized masks, and
      the decode on ragged tiles, where the encode raises; then the
-     entropy stage: K5 on K3's threshold-0
-     residuals (equal to its plain version, and to the host coder's 64-word
-     chunk widths), the host coder's roundtrip, and its bytes over raw at
-     2 mm noise and on a noise-free clip;
- 11. K5, K5b, K6, K6b and K7 bit for bit against their plain versions at
-     128x128 and 240x320, every packable width, (lo, hi) in (0, 1) and
-     (0.1, 10), with half-step ties and a NaN/+-inf/-0.0 tile (and K5 with
-     a width-32 and a width-0 tile); whether PyTorch's own division by a
-     Python float rounds those ties as the true division does;
+     entropy stage: each threshold-0 residual and its per-tile widths from
+     wire.entropy_residuals, one launch of K3 (the widths equal to K5's plain version and to the
+     host coder's 64-word chunk widths), the host coder's roundtrip, and
+     its bytes over raw at 2 mm noise and on a noise-free clip; each
+     keyframe launch equal to K6 then K7 and each K3 launch with the
+     widths to K3 then K5, and both to the CPU;
+ 11. K5, K5b, K6, K6b, the keyframe launch and K7 bit for bit against
+     their plain versions at 128x128 and 240x320, every packable width,
+     (lo, hi) in (0, 1) and (0.1, 10), with half-step ties and a
+     NaN/+-inf/-0.0 tile (and K5 with a width-32 and a width-0 tile, on
+     8x128, 32x64 and 9x130 tiles and off 16-byte alignment); whether
+     PyTorch's own division by a Python float
+     rounds those ties as the true division does;
  12. the codec model's density calibration on the card (K3b's mask-only
      launch at 8x32)
      against the port's CPU run: densities equal, (gain, floor) to 1e-9;
- 13. in the batched step, K6b quantizes the 4 clients' frames and K5b
-     scans their 4 residual planes, each row equal to K6/K5 alone;
+ 13. in the batched step, K6b quantizes the 4 clients' frames and one
+     launch of K3b writes their 4 residual planes and widths, equal to
+     K3b then K5b and to the CPU, each row equal to K6 / K3 with the
+     widths alone;
  14. the one-launch paths (encode, decode, K3 with the reconstruction,
-     the two-output K4) timed beside the compositions they replace (events,
-     profiler device time and activities a call, plain version, bound and
-     its bytes); device activities per quantized closed-loop delta frame,
-     old path against new; K4 against torch.bitwise_xor at 128x128,
-     240x320 and 480x640;
- 15. one {"kernels": [...]} line with all twelve kernels and the four
+     the two-output K4, K3 and K3b with the widths, the keyframe launch)
+     timed beside the compositions they replace (events, profiler device
+     time and activities a call, plain version, bound and its bytes);
+     device activities per quantized closed-loop delta frame, old path
+     against new; K4 against torch.bitwise_xor at 128x128, 240x320 and
+     480x640;
+ 15. one {"kernels": [...]} line with all twelve kernels and the seven
      one-launch paths, then the {"ok": ...} line last.
 
 Each path (the tracker, the uplink, the quantized uplink with its
@@ -749,7 +757,8 @@ def phase_codec_kernels(torch, ck, frames, densities, device):
     the shape the uplink gave it (change_density's transitions of the
     sequence), then all three on planes with a NaN and a signed-zero
     tile."""
-    errs = {"k3": 0.0, "k3b": 0.0, "k4": 0.0, "k3_recon": 0.0, "k4_pair": 0.0}
+    errs = {"k3": 0.0, "k3b": 0.0, "k4": 0.0, "k3_recon": 0.0, "k4_pair": 0.0,
+            "k3_widths": 0.0, "k3b_widths": 0.0}
 
     def check_recon(f, r, d, m, label, **tile):
         """K3 with the reconstruction against K3 then K4 (d, m from K3) and
@@ -761,6 +770,29 @@ def phase_codec_kernels(torch, ck, frames, densities, device):
               and _bit_equal(torch, recon.cpu(), plain),
               f"K3 with the reconstruction at {label}: differs from K3 then K4 or the CPU")
         errs["k3_recon"] = max(errs["k3_recon"], _value_err(torch, recon.cpu(), plain))
+
+    def check_widths(f, r, bd, bm, label, **tile):
+        """K3b with the widths against K3b then K5b (bd, bm from K3b) and
+        its CPU plain version, each row against K3 with the widths on
+        that client, bit for bit."""
+        bh, bw = tile["block_h"], tile["block_w"]
+        d, m, widths = ck._delta_encode_widths(f, r, **tile)
+        plain = ck._delta_encode_widths(f.cpu(), r.cpu(), **tile)
+        check(_bit_equal(torch, d, bd) and _bit_equal(torch, m, bm)
+              and _bit_equal(torch, widths, ck.significant_bit_widths_batched(
+                  bd, block_h=bh, block_w=bw))
+              and all(_bit_equal(torch, a.cpu(), b) for a, b in zip((d, m, widths), plain)),
+              f"K3b with the widths at {label}: differs from K3b then K5b or the CPU")
+        errs["k3b_widths"] = max(errs["k3b_widths"], _value_err(torch, widths.cpu(), plain[2]))
+        for i in range(f.shape[0]):
+            di, mi, wi = ck._delta_encode_widths(f[i], r[i], **tile)
+            check(_bit_equal(torch, di, d[i]) and _bit_equal(torch, mi, m[i])
+                  and _bit_equal(torch, wi, widths[i])
+                  and _bit_equal(torch, wi, ck.significant_bit_widths(
+                      ck.delta_encode(f[i], r[i], **tile)[0], block_h=bh, block_w=bw)),
+                  f"K3 with the widths at {label}, client {i}: differs from K3b's row or "
+                  f"from K3 then K5")
+            errs["k3_widths"] = max(errs["k3_widths"], _value_err(torch, wi.cpu(), plain[2][i]))
 
     for thr, density in densities.items():
         bd, bm = ck.delta_encode_batched(frames[1:], frames[:-1], threshold=thr)
@@ -810,6 +842,8 @@ def phase_codec_kernels(torch, ck, frames, densities, device):
             check(_bit_equal(torch, out[changed], f[0][changed]),
                   f"K3 -> K4 at {h}x{w}: a changed tile does not reconstruct bit for bit")
             check_recon(f[0], r[0], d, m, f"{h}x{w}, threshold {thr}", threshold=thr)
+            check_widths(f, r, bd, bm, f"{h}x{w}, threshold {thr}", threshold=thr, block_h=8,
+                         block_w=128)
             state, copy = ck._delta_decode_pair(d, r[0])
             check(_bit_equal(torch, state, out) and _bit_equal(torch, copy, out)
                   and state.data_ptr() != copy.data_ptr(),
@@ -818,8 +852,9 @@ def phase_codec_kernels(torch, ck, frames, densities, device):
                                   _value_err(torch, copy, want))
         log(f"[codec] {h}x{w}, thresholds {STREAM_THRESHOLDS}: K3, K3b (B={CLIENTS}, rows = K3) "
             f"and K4 bit-identical to their plain versions, the mask-only K3 and K3b to the "
-            f"full launches' masks, K3 with the reconstruction to K3 then K4, the two-output "
-            f"K4 to K4; NaN and -0.0/+0.0 tiles unchanged")
+            f"full launches' masks, K3 with the reconstruction to K3 then K4, K3b and K3 with "
+            f"the widths to K3b then K5b and K3 then K5, the two-output K4 to K4; NaN and "
+            f"-0.0/+0.0 tiles unchanged (width 0)")
     # tiles of over 1,024 pixels run the kernel's loops over later chunks:
     # 32x64 on the vector path, 9x130 on the scalar path, both ragged
     for h, w, bh, bw in ((240, 320, 32, 64), (240, 322, 9, 130)):
@@ -841,9 +876,11 @@ def phase_codec_kernels(torch, ck, frames, densities, device):
             errs["k3b"] = max(errs["k3b"], _value_err(torch, bd, pd))
             check_recon(f[0], r[0], d, m, f"{h}x{w} on {bh}x{bw} tiles, threshold {thr}",
                         **tile)
+            check_widths(f, r, bd, bm, f"{h}x{w} on {bh}x{bw} tiles, threshold {thr}", **tile)
         log(f"[codec] {h}x{w} on {bh}x{bw} tiles ({bh * bw} pixels), thresholds "
-            f"{STREAM_THRESHOLDS}: K3, K3b, their mask-only launches and K3 with the "
-            f"reconstruction bit-identical to the plain version (and to K3 then K4)")
+            f"{STREAM_THRESHOLDS}: K3, K3b, their mask-only launches, K3 with the "
+            f"reconstruction and K3/K3b with the widths bit-identical to the plain version "
+            f"(and to K3 then K4, K3 then K5, K3b then K5b)")
     return errs
 
 
@@ -858,20 +895,22 @@ HEADER_NBYTES = 64
 
 def phase_quant_uplink(torch, ck, cref, wire, frames, lo, hi):
     """The clip through the quantized wire format in a closed loop on the
-    card: frame 0 is a keyframe (K6, K7), every later frame is encoded
-    against the receiver's previous reconstruction and decoded.  Returns
-    the ratios, and each delta frame's (bits, frame, reference, words,
-    mask, decoded frame) for phase_encode_masks."""
+    card: frame 0 is a keyframe (K6's launch that also writes K7's
+    reconstruction), every later frame is encoded against the receiver's
+    previous reconstruction and decoded.  Returns the ratios, each delta
+    frame's (bits, frame, reference, words, mask, decoded frame) for
+    phase_encode_masks, and each keyframe's (bits, words, reconstruction)
+    for phase_path_compositions."""
     import numpy as np
 
     t_count, h, w = frames.shape
     raw = h * w * 4
     tol_ulp = 2 * float(np.spacing(np.float32(hi)))
-    out, encoded = {}, []
+    out, encoded, keyframes = {}, [], []
     for bits in QUANT_BITS:
         step = cref.quant_step(lo, hi, bits)
-        words = ck.quantize_pack(frames[0], lo, hi, bits=bits)
-        recon = ck.unpack_dequantize(words, lo, hi, bits=bits)
+        words, recon = wire.encode_keyframe(frames[0], lo, hi, bits=bits)
+        keyframes.append((bits, words, recon))
         wire_nbytes = HEADER_NBYTES + words.numel() * 4
         densities, worst, identity_gap = [], 0.0, 0.0
         for t in range(t_count):
@@ -905,7 +944,7 @@ def phase_quant_uplink(torch, ck, cref, wire, frames, lo, hi):
             f"{out[bits]['density']:.4f}; wire {wire_nbytes} B of {raw * t_count} B raw, "
             f"ratio {ratio:.4f} (keyframe + {t_count - 1} deltas, {HEADER_NBYTES} B headers); "
             f"exact bytes within {identity_gap:.3f} B of the model's identity")
-    return out, encoded
+    return out, encoded, keyframes
 
 
 def old_encode_frame(ck, cref, frame, ref, lo, hi, bits, block_h=8, block_w=128):
@@ -956,19 +995,23 @@ def phase_encode_masks(torch, ck, cref, wire, encoded, lo, hi):
         f"and the CPU composition, bit for bit")
 
 
-def phase_entropy(torch, ck, cref, clips):
-    """The entropy stage on K3's threshold-0 residual planes of each clip:
-    K5's per-tile widths (against the plain version and the host coder's
-    chunk widths), the host coder's roundtrip, and its bytes over raw."""
+def phase_entropy(torch, ck, cref, wire, clips):
+    """The entropy stage on the threshold-0 residual planes of each clip,
+    each with its per-tile widths from wire.entropy_residuals, one launch
+    of K3 (against K5's
+    plain version and the host coder's chunk widths), the host coder's
+    roundtrip, and its bytes over raw.  Returns the ratios, and each
+    residual's (frame, reference, delta, mask, widths) for
+    phase_path_compositions."""
     import numpy as np
 
-    ratios = {}
+    ratios, residuals = {}, []
     for label, clip in clips.items():
         t_count, h, w = clip.shape
         coded = raw = 0
         for t in range(1, t_count):
-            delta, _ = ck.delta_encode(clip[t], clip[t - 1])
-            widths = ck.significant_bit_widths(delta)
+            delta, mask, widths = wire.entropy_residuals(clip[t], clip[t - 1])
+            residuals.append((clip[t], clip[t - 1], delta, mask, widths))
             host = delta.cpu()
             check(_bit_equal(torch, widths.cpu(), ck.significant_bit_widths_plain(host[None])[0]),
                   f"K5 on the {label} residual {t} differs from its plain version")
@@ -985,11 +1028,40 @@ def phase_entropy(torch, ck, cref, clips):
             coded += len(data)
             raw += words.size * 4
         ratios[label] = coded / raw
-        log(f"[entropy] {label} clip: {t_count - 1} threshold-0 residual planes of {h}x{w}: "
-            f"K5 widths equal the plain version and the coder's 64-word chunk widths; "
-            f"coder roundtrip bit-identical; {coded} B of {raw} B raw, ratio "
-            f"{ratios[label]:.4f} (measured; sim/hardware.codec_point assumes 0.55)")
-    return ratios
+        log(f"[entropy] {label} clip: {t_count - 1} threshold-0 residual planes of {h}x{w}, "
+            f"each with its widths from one K3 launch: widths equal K5's plain version and "
+            f"the coder's 64-word chunk widths; coder roundtrip bit-identical; {coded} B of "
+            f"{raw} B raw, ratio {ratios[label]:.4f} (measured; sim/hardware.codec_point "
+            f"assumes 0.55)")
+    return ratios, residuals
+
+
+def phase_path_compositions(torch, ck, wire, keyframes, residuals, frame0, lo, hi):
+    """The quantized uplink's keyframe launches against K6 then K7, and the
+    entropy stage's K3 launches with the widths against K3 then K5, on the
+    same inputs, and both against the CPU's plain composition, bit for
+    bit (after the path's launch counts were read)."""
+    err = {"k6_recon": 0.0, "k3_widths": 0.0}
+    for bits, words, recon in keyframes:
+        k6 = ck.quantize_pack(frame0, lo, hi, bits=bits)
+        host_words, host_recon = wire.encode_keyframe(frame0.cpu(), lo, hi, bits=bits)
+        check(_bit_equal(torch, words, k6) and _bit_equal(torch, words.cpu(), host_words)
+              and _bit_equal(torch, recon, ck.unpack_dequantize(k6, lo, hi, bits=bits))
+              and _bit_equal(torch, recon.cpu(), host_recon),
+              f"the keyframe launch at {bits} bits differs from K6 then K7 or from the CPU")
+        err["k6_recon"] = max(err["k6_recon"], _value_err(torch, recon.cpu(), host_recon))
+    for f, r, delta, mask, widths in residuals:
+        k3_delta, k3_mask = ck.delta_encode(f, r)
+        host = wire.entropy_residuals(f.cpu(), r.cpu())
+        check(_bit_equal(torch, delta, k3_delta) and _bit_equal(torch, mask, k3_mask)
+              and _bit_equal(torch, widths, ck.significant_bit_widths(k3_delta))
+              and all(_bit_equal(torch, a.cpu(), b) for a, b in zip((delta, mask, widths), host)),
+              "a residual of the entropy stage differs from K3 then K5 or from the CPU")
+        err["k3_widths"] = max(err["k3_widths"], _value_err(torch, widths.cpu(), host[2]))
+    log(f"[quant] the {len(keyframes)} keyframe launches equal K6 then K7 (words and the "
+        f"reconstruction's bits) and the CPU; the entropy stage's {len(residuals)} K3 launches "
+        f"with the widths equal K3 then K5 (delta, mask, widths) and the CPU, bit for bit")
+    return err
 
 
 def _quant_planes(torch, h, w, lo, hi, bits, device, seed, b=CLIENTS):
@@ -1009,9 +1081,10 @@ def _quant_planes(torch, h, w, lo, hi, bits, device, seed, b=CLIENTS):
 
 
 def phase_quant_kernels(torch, ck, cref, frames, device):
-    """K6b/K6 and K7 at every packable width and K5b/K5, bit for bit
-    against their plain versions run on the CPU copy of the inputs."""
-    errs = {"k5": 0.0, "k5b": 0.0, "k6": 0.0, "k6b": 0.0, "k7": 0.0}
+    """K6b/K6, K6's keyframe launch and K7 at every packable width and
+    K5b/K5, bit for bit against their plain versions run on the CPU copy
+    of the inputs (the keyframe launch also against K6 then K7)."""
+    errs = {"k5": 0.0, "k5b": 0.0, "k6": 0.0, "k6b": 0.0, "k7": 0.0, "k6_recon": 0.0}
     ties = moved = 0
     for h, w in ((128, 128), (240, 320)):
         for lo, hi in ((0.0, 1.0), (0.1, 10.0)):
@@ -1049,6 +1122,16 @@ def phase_quant_kernels(torch, ck, cref, frames, device):
                 check(_bit_equal(torch, ck.quantize_pack(shifted, lo, hi, bits=bits).cpu(),
                                  ck.quantize_pack_plain(shifted.cpu(), lo, hi, bits=bits)),
                       f"K6 on an unaligned plane at {h}x{w}, {bits} bits differs")
+                for plane in (x[0], shifted):
+                    kw, kr = ck._quantize_pack_recon(plane, lo, hi, bits=bits)
+                    pw, pr = ck._quantize_pack_recon(plane.cpu(), lo, hi, bits=bits)
+                    k6 = ck.quantize_pack(plane, lo, hi, bits=bits)
+                    check(_bit_equal(torch, kw, k6)
+                          and _bit_equal(torch, kr, ck.unpack_dequantize(k6, lo, hi, bits=bits))
+                          and _bit_equal(torch, kw.cpu(), pw) and _bit_equal(torch, kr.cpu(), pr),
+                          f"the keyframe launch at {h}x{w}, ({lo}, {hi}), {bits} bits: differs "
+                          f"from K6 then K7 or the CPU")
+                    errs["k6_recon"] = max(errs["k6_recon"], _value_err(torch, kr.cpu(), pr))
         f, r = _codec_planes(torch, frames, h, w, device, seed=h)
         deltas, _ = ck.delta_encode_batched(f, r)
         deltas[:, :8, -128:] = 0  # an all-zero tile: width 0
@@ -1064,10 +1147,25 @@ def phase_quant_kernels(torch, ck, cref, frames, device):
             solo = ck.significant_bit_widths(deltas[i])
             check(_bit_equal(torch, solo, widths[i]), f"K5b row {i} at {h}x{w} differs from K5")
             errs["k5"] = max(errs["k5"], _value_err(torch, solo.cpu(), want[i]))
-        log(f"[quant] {h}x{w}: K6b (B={CLIENTS}, rows = K6), K7 at bits "
-            f"{cref.PACKABLE_BITS} and (lo, hi) in (0, 1), (0.1, 10), and K5b (rows = K5) "
-            f"bit-identical to their plain versions on the CPU; ties, NaN/+-inf/-0.0, "
-            f"a width-32 and a width-0 tile, and a plane off 16-byte alignment included")
+        # K5's other launches: 32x64 and 9x130 tiles, and a plane a word off
+        # 16-byte alignment
+        buf = torch.empty(deltas.numel() + 1, dtype=deltas.dtype, device=device)
+        buf[1:] = deltas.reshape(-1)
+        shifted = buf[1:].view(deltas.shape)
+        for d, bh, bw in ((deltas, 32, 64), (deltas, 9, 130), (shifted, 8, 128)):
+            got = ck.significant_bit_widths_batched(d, block_h=bh, block_w=bw)
+            plain = ck.significant_bit_widths_plain(d.cpu(), block_h=bh, block_w=bw)
+            check(_bit_equal(torch, got.cpu(), plain)
+                  and all(_bit_equal(torch, ck.significant_bit_widths(
+                      d[i], block_h=bh, block_w=bw), got[i]) for i in range(CLIENTS)),
+                  f"K5b/K5 at {tuple(d.shape)} on {bh}x{bw} tiles differs from its plain "
+                  f"version or from K5")
+            errs["k5b"] = max(errs["k5b"], _value_err(torch, got.cpu(), plain))
+        log(f"[quant] {h}x{w}: K6b (B={CLIENTS}, rows = K6), the keyframe launch (= K6 then "
+            f"K7), K7 at bits {cref.PACKABLE_BITS} and (lo, hi) in (0, 1), (0.1, 10), and K5b "
+            f"(rows = K5; 8x128, 32x64 and 9x130 tiles) bit-identical "
+            f"to their plain versions on the CPU; ties, NaN/+-inf/-0.0, a width-32 and a "
+            f"width-0 tile, and planes off 16-byte alignment included")
     log(f"[quant] the plain quantizer on the card divides by a CUDA tensor: it equals the "
         f"CPU's on every plane. PyTorch's division by a Python float moved {moved} of "
         f"{ties} exact half-step ties on this card")
@@ -1180,12 +1278,13 @@ def _bound(ops, nbytes):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_batched_step(torch, hm, tracker_mod, ops_mod, rs, pu, ck, decoded, truth, device,
-                       q_lo, q_hi):
+def phase_batched_step(torch, hm, tracker_mod, ops_mod, rs, pu, ck, wire, decoded, truth,
+                       device, q_lo, q_hi):
     """B = 4 clients' frames quantized by K6b and their residual planes
-    width-scanned by K5b; their populations scored by K1b, updated by K2b
-    and scored again: the edge server's step.  Returns its launch counts,
-    its inputs (for timing) and its errors against the plain versions."""
+    and widths from one launch of K3b; their populations scored by K1b,
+    updated by K2b and scored again: the edge server's step.  Returns its
+    launch counts, its inputs (for timing) and its errors against the
+    plain versions."""
     cfg = configs()[1]
     frame_idx = [1 + 7 * b for b in range(CLIENTS)]
     h_prev = truth[[i - 1 for i in frame_idx]]
@@ -1210,7 +1309,6 @@ def phase_batched_step(torch, hm, tracker_mod, ops_mod, rs, pu, ck, decoded, tru
     torch.cuda.synchronize()
 
     prev = decoded[[i - 1 for i in frame_idx]]
-    residuals, _ = ck.delta_encode_batched(decoded[frame_idx], prev)
     torch.cuda.synchronize()
 
     rs.launches = rs.launches_batched = pu.launches = pu.launches_batched = 0
@@ -1218,7 +1316,7 @@ def phase_batched_step(torch, hm, tracker_mod, ops_mod, rs, pu, ck, decoded, tru
     for key in ck.launches:
         ck.launches[key] = 0
     words = ck.quantize_pack_batched(decoded[frame_idx], q_lo, q_hi, bits=8)
-    widths = ck.significant_bit_widths_batched(residuals)
+    residuals, res_mask, widths = wire.entropy_residuals(decoded[frame_idx], prev)
     spheres = hm.pack_spheres(hs)
     scores = ops_mod.render_score_batched(spheres, rays, depth, masks)
     gbest = hs[torch.arange(CLIENTS, device=device), torch.argmin(scores, dim=1)]
@@ -1226,26 +1324,40 @@ def phase_batched_step(torch, hm, tracker_mod, ops_mod, rs, pu, ck, decoded, tru
                                                    **UPDATE_CONSTS)
     scores_new = ops_mod.render_score_batched(hm.pack_spheres(x_new), rays, depth, masks)
     torch.cuda.synchronize()
+    c = ck.launches
     launches = {"k1b": rs.launches_batched, "k2b": pu.launches_batched,
-                "k6b": ck.launches["quantize_pack_batched"],
-                "k5b": ck.launches["significant_bit_widths_batched"]}
-    solo = rs.launches + pu.launches + ck.launches["quantize_pack"] + ck.launches[
-        "significant_bit_widths"]
-    check(launches == {"k1b": 2, "k2b": 1, "k6b": 1, "k5b": 1} and solo == 0
-          and pu.launches_projected == 1,
-          f"batched step launched {launches} and {solo} unbatched kernels: expected K1b 2, "
-          f"K2b 1 (with the projection), K6b 1, K5b 1 and no unbatched kernel")
+                "k6b": c["quantize_pack_batched"], "k3b_widths": c["delta_encode_widths"],
+                "k5b": c["significant_bit_widths_batched"]}
+    solo = (rs.launches + pu.launches + c["quantize_pack"] + c["significant_bit_widths"]
+            + c["delta_encode"])
+    check(launches == {"k1b": 2, "k2b": 1, "k6b": 1, "k3b_widths": 1, "k5b": 0}
+          and c["delta_encode_batched"] == 1 and solo == 0 and pu.launches_projected == 1,
+          f"batched step launched {launches}, K3b {c['delta_encode_batched']} and {solo} "
+          f"unbatched kernels: expected K1b 2, K2b 1 (with the projection), K6b 1, K3b with "
+          f"the widths 1, K5b 0 and no unbatched kernel")
+    launches["k3b"] = c["delta_encode_batched"]
+    k3b_delta, k3b_mask = ck.delta_encode_batched(decoded[frame_idx], prev)
+    host = wire.entropy_residuals(decoded[frame_idx].cpu(), prev.cpu())
+    check(_bit_equal(torch, residuals, k3b_delta) and _bit_equal(torch, res_mask, k3b_mask)
+          and _bit_equal(torch, widths, ck.significant_bit_widths_batched(k3b_delta))
+          and all(_bit_equal(torch, a.cpu(), b) for a, b in zip((residuals, res_mask, widths),
+                                                                 host)),
+          "batched step: K3b with the widths differs from K3b then K5b or from the CPU")
+    k3b_widths_err = _value_err(torch, widths.cpu(), host[2])
     for b in range(CLIENTS):
         check(_bit_equal(torch, words[b], ck.quantize_pack(decoded[frame_idx[b]], q_lo, q_hi, bits=8)),
               f"K6b row {b} differs from K6 on that client's frame")
-        check(_bit_equal(torch, widths[b], ck.significant_bit_widths(residuals[b])),
-              f"K5b row {b} differs from K5 on that client's residual plane")
+        solo_widths = wire.entropy_residuals(decoded[frame_idx[b]], prev[b])
+        check(all(_bit_equal(torch, a, full[b]) for a, full in zip(
+                  solo_widths, (residuals, res_mask, widths))),
+              f"K3b with the widths: row {b} differs from K3 with the widths on that client")
     check(words.shape == (CLIENTS, *decoded.shape[1:-1], decoded.shape[-1] // 4)
           and widths.shape == (CLIENTS, -(-decoded.shape[1] // 8), -(-decoded.shape[2] // 128)),
-          "batched step: K6b's words or K5b's widths are malformed")
+          "batched step: K6b's words or the residuals' widths are malformed")
     log(f"[batched] K6b quantized the {CLIENTS} clients' frames at 8 bits over ({q_lo}, {q_hi}) m "
-        f"in one launch, K5b scanned their residual planes in one (max width per client "
-        f"{widths.amax(dim=(1, 2)).tolist()}); each row equal to K6/K5 on that client")
+        f"in one launch, K3b wrote their residual planes and widths in one (max width per "
+        f"client {widths.amax(dim=(1, 2)).tolist()}; equal to K3b then K5b and the CPU); each "
+        f"row equal to K6 / K3 with the widths on that client")
     for name, t in (("scores", scores), ("scores after the update", scores_new)):
         check(t.shape == (CLIENTS, n) and bool(torch.isfinite(t).all()),
               f"batched step: {name} malformed")
@@ -1298,8 +1410,8 @@ def phase_batched_step(torch, hm, tracker_mod, ops_mod, rs, pu, ck, decoded, tru
         f"plain {k2b_err:.3g} (tol {K2_TOL})")
     inputs = {"score": (spheres, rays, depth, masks),
               "update": (hs, v, pbest, gbest, r1, r2, lo, hi),
-              "frames": decoded[frame_idx], "residuals": residuals}
-    return launches, inputs, {"k1b": k1b_err, "k2b": k2b_err}
+              "frames": decoded[frame_idx], "prev": prev, "residuals": residuals}
+    return launches, inputs, {"k1b": k1b_err, "k2b": k2b_err, "k3b_widths": k3b_widths_err}
 
 
 def phase_slice2_timing(torch, rs, pu, ck, frames, step_inputs, device):
@@ -1467,7 +1579,7 @@ def phase_slice3_timing(torch, ck, frames, step_inputs, device, lo, hi):
     return out
 
 
-def phase_fused_timing(torch, ck, cref, wire, frames, device, lo, hi):
+def phase_fused_timing(torch, ck, cref, wire, frames, step_inputs, device, lo, hi):
     """Each one-launch path beside the composition it replaces, in this
     run: CUDA events, profiler device time and device activities per
     call, the plain version, the bound and its bytes; device activities
@@ -1537,6 +1649,36 @@ def phase_fused_timing(torch, ck, cref, wire, frames, device, lo, hi):
         lambda: ck.delta_decode(delta, r).clone(), "K4 then a device copy",
         lambda: (lambda o: (o, o.clone()))(ck.delta_decode_plain(delta, r)), 16 * h * w)
 
+    # the entropy stage's call (threshold 0) and the batched step's; bytes:
+    # two float planes read, the delta, mask and widths written
+    def widths_plain(ff, rr):
+        d, _ = ck.delta_encode_plain(ff, rr)
+        return ck.significant_bit_widths_plain(d)
+
+    row("k3_widths", f"K3 with the widths at {h}x{w}, threshold 0",
+        lambda: ck._delta_encode_widths(f, r),
+        lambda: ck.significant_bit_widths(ck.delta_encode(f, r)[0]), "K3 then K5",
+        lambda: widths_plain(f[None], r[None]), 12 * h * w + 8 * tiles)
+    xs, prev = step_inputs["frames"], step_inputs["prev"]
+    b = xs.shape[0]
+    k3b = lambda: ck.delta_encode_batched(xs, prev)
+    row("k3b_widths", f"K3b with the widths at ({b}, {h}, {w}), threshold 0",
+        lambda: ck._delta_encode_widths(xs, prev),
+        lambda: ck.significant_bit_widths_batched(k3b()[0]), "K3b then K5b",
+        lambda: widths_plain(xs, prev), b * (12 * h * w + 8 * tiles))
+    alone = dict(ms=_time_ms(torch, k3b, 500),
+                 device_ms=_device_ms(torch, k3b, 50, ["delta_encode_kernel"]))
+    out["k3b_widths"]["k3b_alone"] = alone
+    log(f"[time] K3b alone at ({b}, {h}, {w}), threshold 0: {_us(alone['ms'])} (device "
+        f"{_us(alone['device_ms'])})")
+    for bits in QUANT_BITS:
+        row("k6_recon" if bits == 8 else None, f"keyframe launch at {h}x{w}, {bits} bits",
+            lambda: ck._quantize_pack_recon(f, lo, hi, bits=bits),
+            lambda: ck.unpack_dequantize(ck.quantize_pack(f, lo, hi, bits=bits), lo, hi,
+                                         bits=bits), "K6 then K7",
+            lambda: ck._quantize_pack_recon(f.cpu(), lo, hi, bits=bits),
+            8 * h * w + h * w * bits // 8)
+
     sizes = []
     gen = torch.Generator(device=device).manual_seed(17)
     for ph, pw in ((128, 128), (240, 320), (480, 640)):
@@ -1571,8 +1713,8 @@ SLICE3_KERNELS = [
 
 
 FUSED_KERNELS = [
-    # key, name, source, replaces: the launches that took over K7's and K4's
-    # work (the TPU kernel each redesigns)
+    # key, name, source, replaces: the launches that took over K7's, K4's
+    # and K5's work (the TPU kernel whose work each took)
     ("quant_encode", "quant_encode", "src/repro_torch/csrc/quant_codec.cu",
      "src/repro/codec/kernels.py:370"),
     ("quant_decode", "quant_decode", "src/repro_torch/csrc/quant_codec.cu",
@@ -1581,10 +1723,18 @@ FUSED_KERNELS = [
      "src/repro/codec/kernels.py:130"),
     ("k4_pair", "delta_decode_pair", "src/repro_torch/csrc/delta_codec.cu",
      "src/repro/codec/kernels.py:130"),
+    ("k3_widths", "delta_encode_widths", "src/repro_torch/csrc/delta_codec.cu",
+     "src/repro/codec/kernels.py:229"),
+    ("k3b_widths", "delta_encode_widths_batched", "src/repro_torch/csrc/delta_codec.cu",
+     "src/repro/codec/kernels.py:260"),
+    ("k6_recon", "quantize_pack_recon", "src/repro_torch/csrc/quant_codec.cu",
+     "src/repro/codec/kernels.py:370"),
 ]
 
 # rows whose launches are also counted in another row's: the row's name
-SUBSET_OF = {"k3_recon": "delta_encode", "k4_pair": "delta_decode"}
+SUBSET_OF = {"k3_recon": "delta_encode", "k4_pair": "delta_decode",
+             "k3_widths": "delta_encode", "k3b_widths": "delta_encode_batched",
+             "k6_recon": "quantize_pack"}
 
 
 SLICE2_KERNELS = [
@@ -1673,44 +1823,66 @@ def main() -> int:
     torch.cuda.synchronize()
     for key in ck.launches:
         ck.launches[key] = 0
-    _, encoded = phase_quant_uplink(torch, ck, cref, wire, frames, lo, hi)
-    phase_entropy(torch, ck, cref, {"noise 2 mm": frames, "noise-free": clean})
+    _, encoded, keyframes = phase_quant_uplink(torch, ck, cref, wire, frames, lo, hi)
+    clips = {"noise 2 mm": frames, "noise-free": clean}
+    _, residuals = phase_entropy(torch, ck, cref, wire, clips)
     torch.cuda.synchronize()
-    quant = {"k3": ck.launches["delta_encode"], "k5": ck.launches["significant_bit_widths"],
-             "k6": ck.launches["quantize_pack"], "k7": ck.launches["unpack_dequantize"],
-             "quant_encode": ck.launches["quant_encode"],
-             "quant_decode": ck.launches["quant_decode"]}
-    others = sum(ck.launches.values()) - sum(quant.values())
+    c = ck.launches
+    quant = {"k3_widths": c["delta_encode_widths"], "k6_recon": c["quantize_pack_recon"],
+             "quant_encode": c["quant_encode"], "quant_decode": c["quant_decode"]}
+    # the standalone launches of K3, K5, K6 and K7 (the flagged ones are
+    # counted under K3's and K6's names too)
+    standalone = {"k3": c["delta_encode"] - c["delta_encode_widths"],
+                  "k5": c["significant_bit_widths"],
+                  "k6": c["quantize_pack"] - c["quantize_pack_recon"],
+                  "k7": c["unpack_dequantize"]}
+    named = ("delta_encode", "delta_encode_widths", "significant_bit_widths", "quantize_pack",
+             "quantize_pack_recon", "unpack_dequantize", "quant_encode", "quant_decode")
+    others = sum(v for k, v in c.items() if k not in named)
+    residual_planes = sum(clip.shape[0] - 1 for clip in clips.values())
     log(f"[quant] launches on the quantized uplink and entropy stage: one-launch encode "
         f"{quant['quant_encode']} and decode {quant['quant_decode']} (one each a delta frame), "
-        f"K6 {quant['k6']} and K7 {quant['k7']} (the keyframes), K3 {quant['k3']} (the entropy "
-        f"stage's residuals), K5 {quant['k5']}; {others} others")
+        f"the keyframe launch {quant['k6_recon']} (K6 writing K7's reconstruction), K3 with "
+        f"the widths {quant['k3_widths']} (the entropy stage's residuals); standalone K3 "
+        f"{standalone['k3']}, K5 {standalone['k5']}, K6 {standalone['k6']}, K7 "
+        f"{standalone['k7']}; {others} others")
     check(min(quant.values()) > 0, "a kernel of the quantized uplink path was not launched")
     check(quant["quant_encode"] == quant["quant_decode"] == len(encoded)
-          and quant["k6"] == quant["k7"] == len(QUANT_BITS) and others == 0,
-          f"encode_frame and decode_frame must be one launch a delta frame ({len(encoded)}) "
-          f"and K6/K7 run only for the {len(QUANT_BITS)} keyframes: got {quant}, {others} "
-          f"other launches")
+          and quant["k6_recon"] == len(QUANT_BITS) and quant["k3_widths"] == residual_planes
+          and not any(standalone.values()) and others == 0,
+          f"encode_frame and decode_frame must be one launch a delta frame ({len(encoded)}), "
+          f"the keyframe one launch for each of the {len(QUANT_BITS)} keyframes, and the "
+          f"entropy stage one K3 with the widths a residual ({residual_planes}), with no "
+          f"standalone K3, K5, K6 or K7: got {quant}, standalone {standalone}, {others} other "
+          f"launches")
+    launches["k3"] += c["delta_encode"]
+    launches.update({"k5": standalone["k5"], "k6": c["quantize_pack"],
+                     "k7": standalone["k7"], **quant})
+    def merge(new_errs):  # the largest error of each kernel over the phases
+        for key, err in new_errs.items():
+            errs[key] = max(errs.get(key, 0.0), err)
+
+    merge(phase_path_compositions(torch, ck, wire, keyframes, residuals, frames[0], lo, hi))
     phase_encode_masks(torch, ck, cref, wire, encoded, lo, hi)
-    errs.update(phase_fused_shapes(torch, ck, cref, wire, device, lo, hi))
-    launches["k3"] += quant.pop("k3")
-    launches.update(quant)
-    errs.update(phase_quant_kernels(torch, ck, cref, frames, device))
+    merge(phase_fused_shapes(torch, ck, cref, wire, device, lo, hi))
+    merge(phase_quant_kernels(torch, ck, cref, frames, device))
     phase_calibration(torch, ck, wire, rate, rgbd)
 
     step_launches, step_inputs, step_errs = phase_batched_step(
-        torch, hm, tracker_mod, ops_mod, rs, pu, ck, decoded, truth, device, lo, hi)
+        torch, hm, tracker_mod, ops_mod, rs, pu, ck, wire, decoded, truth, device, lo, hi)
+    launches["k3b"] += step_launches.pop("k3b")
     launches.update(step_launches)
-    errs.update(step_errs)
+    merge(step_errs)
     timing = phase_slice2_timing(torch, rs, pu, ck, frames, step_inputs, device)
     timing.update(phase_slice3_timing(torch, ck, frames, step_inputs, device, lo, hi))
-    timing.update(phase_fused_timing(torch, ck, cref, wire, frames, device, lo, hi))
+    timing.update(phase_fused_timing(torch, ck, cref, wire, frames, step_inputs, device, lo,
+                                     hi))
     timing["k4"]["sizes"] = timing.pop("k4_sizes")
     rows = (SLICE2_KERNELS
             + [(key, name, "src/repro_torch/csrc/quant_codec.cu", replaces)
                for key, name, replaces in SLICE3_KERNELS]
             + FUSED_KERNELS)
-    extras = ("mask_only", "composition", "sizes")
+    extras = ("mask_only", "composition", "sizes", "k3b_alone")
     for key, name, source, replaces in rows:
         t = timing[key]
         kernels.append({
@@ -1723,7 +1895,7 @@ def main() -> int:
     log(f"[profile] device activities per quantized closed-loop delta frame, old path -> new: "
         + ", ".join(f"{b} bits {a['old']} -> {a['new']}"
                     for b, a in timing["activities_per_frame"].items()))
-    check(len(kernels) == 16, f"{len(kernels)} kernels in the kernels line, expected 16")
+    check(len(kernels) == 19, f"{len(kernels)} kernels in the kernels line, expected 19")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -10,9 +10,11 @@ the edge encodes and decodes on the card.
   (``delta_encode``), K3b (``delta_encode_batched``), K4
   (``delta_decode``), K5/K5b (``significant_bit_widths[_batched]``),
   K6/K6b (``quantize_pack[_batched]``) and K7 (``unpack_dequantize``);
-* ``codec.wire``    — what runs on the kernels: ``encode_frame`` and
-  ``decode_frame``, the stream machines (:class:`DeltaStreamEncoder`,
-  :class:`DeltaStreamDecoder`) and ``change_density``;
+* ``codec.wire``    — what runs on the kernels: ``encode_frame``,
+  ``decode_frame`` and ``encode_keyframe``, the entropy stage's
+  ``entropy_residuals``, the stream machines
+  (:class:`DeltaStreamEncoder`, :class:`DeltaStreamDecoder`) and
+  ``change_density``;
 * ``codec.model``   — the analytic :class:`CodecModel` that prices an
   operating point (:data:`IDENTITY` is the bit-for-bit off-switch);
 * ``codec.rate``    — the per-client :class:`RateController` that picks
@@ -51,4 +53,6 @@ from repro_torch.codec.wire import (  # noqa: F401
     change_density,
     decode_frame,
     encode_frame,
+    encode_keyframe,
+    entropy_residuals,
 )

@@ -11,15 +11,20 @@ Replace the Pallas TPU kernels of ``repro/codec/kernels.py``:
   mask alone, from a launch of K3 or K3b that does not write the delta;
   ``_delta_encode_recon`` adds the decode of the delta against the
   reference, from a launch of K3 that also writes it (the stream
-  encoder's closed loop); ``_delta_decode_pair`` is K4 writing its
-  result twice (the stream decoder's state and the copy it returns).
+  encoder's closed loop); ``_delta_encode_widths`` adds K5's widths of
+  the delta, from a launch of K3 or K3b that also writes them (the
+  entropy stage); ``_delta_decode_pair`` is K4 writing its result twice
+  (the stream decoder's state and the copy it returns).
 * K6 ``quantize_pack``, K6b ``quantize_pack_batched`` and K7
   ``unpack_dequantize`` (``csrc/quant_codec.cu``): ``bits``-wide codes,
   round half to even of a true float32 division, ``32 // bits`` codes
   packed per int32 word, and ``lo + code * step`` back.
+  ``_quantize_pack_recon`` is K6 that also writes K7's values of its
+  words (a keyframe and its reconstruction, in one launch).
 * K5 ``significant_bit_widths`` and K5b ``significant_bit_widths_batched``
   (``csrc/quant_codec.cu``): per tile, the bit length of the tile's max
-  word read as uint32, the entropy stage's side information.
+  word read as uint32, the entropy stage's side information.  They cast
+  their input to int32 first, as the reference does.
 * The quantized wire format's two launches (``csrc/quant_codec.cu``):
   ``_quant_encode``, K6's words and the change mask of the dequantized
   planes at threshold ``step/2`` in one launch (K6, K7, K6, K7 and K3's
@@ -65,14 +70,17 @@ from repro_torch.kernels import _build
 # "delta_encode_mask_only" counts the launches of K3 or K3b, already
 # counted under their own names, that wrote the mask alone,
 # "delta_encode_recon" those of K3 that also wrote the reconstruction,
-# and "delta_decode_pair" those of K4, already counted as K4, that wrote
-# two outputs.
+# "delta_encode_widths" those of K3 or K3b that also wrote the bit
+# widths, "quantize_pack_recon" those of K6, already counted as K6, that
+# also wrote K7's values, and "delta_decode_pair" those of K4, already
+# counted as K4, that wrote two outputs.
 launches = {
     "delta_encode": 0, "delta_encode_batched": 0, "delta_encode_mask_only": 0,
-    "delta_encode_recon": 0, "delta_decode": 0, "delta_decode_pair": 0,
-    "significant_bit_widths": 0, "significant_bit_widths_batched": 0,
-    "quantize_pack": 0, "quantize_pack_batched": 0, "unpack_dequantize": 0,
-    "quant_encode": 0, "quant_decode": 0,
+    "delta_encode_recon": 0, "delta_encode_widths": 0, "delta_decode": 0,
+    "delta_decode_pair": 0, "significant_bit_widths": 0,
+    "significant_bit_widths_batched": 0, "quantize_pack": 0, "quantize_pack_recon": 0,
+    "quantize_pack_batched": 0, "unpack_dequantize": 0, "quant_encode": 0,
+    "quant_decode": 0,
 }
 
 
@@ -120,11 +128,13 @@ def _check_tile(block_h: int, block_w: int) -> None:
 
 
 def _encode_launch(frames, refs, threshold, block_h, block_w, write_delta=True,
-                   write_recon=False):
+                   write_recon=False, write_widths=False):
     """One launch of the encode kernel over (B, H, W) planes: (delta,
-    mask, recon, launched); without ``write_delta`` the mask-only launch,
-    and delta is None; with ``write_recon`` the launch that also writes
-    the reconstruction, else recon is None."""
+    mask, recon, widths, launched); without ``write_delta`` the mask-only
+    launch, and delta is None; with ``write_recon`` the launch that also
+    writes the reconstruction, else recon is None; with ``write_widths``
+    the launch that also writes each tile's bit width, else widths is
+    None."""
     device = frames.device
     b, h, w = frames.shape
     tiles = (-(-h // block_h), -(-w // block_w))
@@ -137,19 +147,22 @@ def _encode_launch(frames, refs, threshold, block_h, block_w, write_delta=True,
     delta = plane(torch.int32, write_delta)
     recon = plane(torch.float32, write_recon)
     mask = torch.empty((b, *tiles), dtype=torch.float32, device=device)
+    widths = (torch.empty((b, *tiles), dtype=torch.int32, device=device) if write_widths
+              else None)
     if b * h * w == 0:
-        return delta, mask.zero_(), recon, False
+        return delta, mask.zero_(), recon, None if widths is None else widths.zero_(), False
     f = _build.kernel_input("frame", frames, device)
     r = _build.kernel_input("ref", refs, device)
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(device):
         err = _build.library().delta_encode_launch(
-            f.data_ptr(), r.data_ptr(), None if delta is None else delta.data_ptr(),
-            None if recon is None else recon.data_ptr(), mask.data_ptr(), b, h, w,
-            block_h, block_w, threshold, _build.stream_handle(device))
+            f.data_ptr(), r.data_ptr(), ptr(delta), ptr(recon), mask.data_ptr(), ptr(widths),
+            b, h, w, block_h, block_w, threshold, _build.stream_handle(device))
     _build.check(err, "delta_encode")
     launches["delta_encode_mask_only"] += not write_delta
     launches["delta_encode_recon"] += write_recon
-    return delta, mask, recon, True
+    launches["delta_encode_widths"] += write_widths
+    return delta, mask, recon, widths, True
 
 
 def delta_encode(
@@ -168,8 +181,8 @@ def delta_encode(
         delta, mask = delta_encode_plain(frame[None], ref[None], threshold=threshold,
                                          block_h=block_h, block_w=block_w)
         return delta[0], mask[0]
-    delta, mask, _, launched = _encode_launch(frame[None], ref[None], threshold,
-                                              block_h, block_w)
+    delta, mask, _, _, launched = _encode_launch(frame[None], ref[None], threshold,
+                                                 block_h, block_w)
     launches["delta_encode"] += launched
     return delta[0], mask[0]
 
@@ -193,10 +206,39 @@ def _delta_encode_recon(
         delta, mask = delta_encode_plain(frame[None], ref[None], threshold=threshold,
                                          block_h=block_h, block_w=block_w)
         return delta[0], mask[0], delta_decode_plain(delta[0], ref)
-    delta, mask, recon, launched = _encode_launch(frame[None], ref[None], threshold,
-                                                  block_h, block_w, write_recon=True)
+    delta, mask, recon, _, launched = _encode_launch(frame[None], ref[None], threshold,
+                                                     block_h, block_w, write_recon=True)
     launches["delta_encode"] += launched
     return delta[0], mask[0], recon[0]
+
+
+def _delta_encode_widths(
+    frames: torch.Tensor,  # (H, W) or (B, H, W) float
+    refs: torch.Tensor,  # like frames
+    *,
+    threshold: float = 0.0,
+    block_h: int = DEFAULT_BLOCK_H,
+    block_w: int = DEFAULT_BLOCK_W,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``delta_encode`` (a plane) or ``delta_encode_batched`` (B planes)
+    and ``significant_bit_widths`` of the delta on the same tiles, bit for
+    bit: ``(delta_bits, mask, widths (.., ceil(H/bh), ceil(W/bw)) i32)``.
+    One launch of K3 or K3b that writes all three: for the entropy stage
+    (``wire.entropy_residuals``), which prices each residual plane by its
+    tiles' widths."""
+    batched = frames.dim() == 3
+    _check_pair(frames, refs, 3 if batched else 2)
+    _check_tile(block_h, block_w)
+    planes = (frames, refs) if batched else (frames[None], refs[None])
+    if not frames.is_cuda:
+        delta, mask = delta_encode_plain(*planes, threshold=threshold, block_h=block_h,
+                                         block_w=block_w)
+        widths = significant_bit_widths_plain(delta, block_h=block_h, block_w=block_w)
+    else:
+        delta, mask, _, widths, launched = _encode_launch(*planes, threshold, block_h,
+                                                          block_w, write_widths=True)
+        launches["delta_encode_batched" if batched else "delta_encode"] += launched
+    return (delta, mask, widths) if batched else (delta[0], mask[0], widths[0])
 
 
 def _delta_mask(
@@ -219,8 +261,8 @@ def _delta_mask(
         _, mask = delta_encode_plain(*planes, threshold=threshold, block_h=block_h,
                                      block_w=block_w)
     else:
-        _, mask, _, launched = _encode_launch(*planes, threshold, block_h, block_w,
-                                              write_delta=False)
+        _, mask, _, _, launched = _encode_launch(*planes, threshold, block_h, block_w,
+                                                 write_delta=False)
         launches["delta_encode_batched" if batched else "delta_encode"] += launched
     return mask if batched else mask[0]
 
@@ -252,7 +294,7 @@ def delta_encode_batched(
         return torch.stack([d for d, _ in outs]), torch.stack([m for _, m in outs])
     if not frames.is_cuda:
         return delta_encode_plain(frames, refs, **consts)
-    delta, mask, _, launched = _encode_launch(frames, refs, threshold, block_h, block_w)
+    delta, mask, _, _, launched = _encode_launch(frames, refs, threshold, block_h, block_w)
     launches["delta_encode_batched"] += launched
     return delta, mask
 
@@ -335,7 +377,7 @@ def significant_bit_widths_plain(
     ceil(W/bw)) i32``.  It goes through int64 (``& 0xFFFFFFFF``), since
     torch's uint32 support is thin, and counts ``m >= 2**k`` over k in
     [0, 32) as the reference kernel does."""
-    d = _pad_plane(deltas.to(torch.int32), block_h, block_w).to(torch.int64) & 0xFFFFFFFF
+    d = _pad_plane(_as_words(deltas), block_h, block_w).to(torch.int64) & 0xFFFFFFFF
     b, hp, wp = d.shape
     tiles = d.reshape(b, hp // block_h, block_h, wp // block_w, block_w)
     m = torch.amax(tiles, dim=(2, 4))
@@ -343,16 +385,35 @@ def significant_bit_widths_plain(
     return (m[..., None] >= thresholds).sum(-1).to(torch.int32)
 
 
-def _check_words(words: torch.Tensor, ndim: int, name: str) -> None:
+def _as_words(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as int32 words, as the reference's ``astype(jnp.int32)``
+    gives them: an int32 plane as it is, other integers wrapped, a float
+    plane taken as float32 (JAX's default precision), truncated toward
+    zero and saturated as XLA converts: NaN to 0, values past the int32
+    range (infinities included) to its ends."""
+    if x.dtype == torch.int32:
+        return x
+    if not x.is_floating_point():
+        return x.to(torch.int32)
+    x = x.to(torch.float32).to(torch.float64).nan_to_num(0.0)
+    return x.clamp(-(2**31), 2**31 - 1).to(torch.int32)
+
+
+def _check_ndim(words: torch.Tensor, ndim: int, name: str) -> None:
     if words.dim() != ndim:
         want = "(H, W)" if ndim == 2 else "(B, H, W)"
         raise ValueError(f"{name} {tuple(words.shape)}: expected a plane of shape {want}")
+
+
+def _check_words(words: torch.Tensor, ndim: int, name: str) -> None:
+    _check_ndim(words, ndim, name)
     if words.dtype != torch.int32:
         raise TypeError(f"{name} has dtype {words.dtype}, expected int32")
 
 
 def _widths_launch(deltas, block_h, block_w):
-    """One launch of the width kernel over (B, H, W) residual planes."""
+    """One launch of the width kernel over (B, H, W) int32 residual
+    planes."""
     device = deltas.device
     b, h, w = deltas.shape
     tiles = (-(-h // block_h), -(-w // block_w))
@@ -378,9 +439,12 @@ def significant_bit_widths(
 ) -> torch.Tensor:
     """Per-tile significant-bit widths of a residual plane, ``(ceil(H/bh),
     ceil(W/bw)) i32`` in [0, 32]: the entropy stage's device half.  A
-    tile's coded size is ``ceil(tile_samples * width / 8) + 1`` bytes."""
-    _check_words(delta_bits, 2, "delta_bits")
+    tile's coded size is ``ceil(tile_samples * width / 8) + 1`` bytes.
+    A plane of another dtype is cast to int32 first, as the reference's
+    ``astype(jnp.int32)`` does (:func:`_as_words`)."""
+    _check_ndim(delta_bits, 2, "delta_bits")
     _check_tile(block_h, block_w)
+    delta_bits = _as_words(delta_bits)
     if not delta_bits.is_cuda:
         return significant_bit_widths_plain(delta_bits[None], block_h=block_h,
                                             block_w=block_w)[0]
@@ -399,11 +463,13 @@ def significant_bit_widths_batched(
     """B clients' residual planes width-scanned together, ``(B,
     ceil(H/bh), ceil(W/bw)) i32``: ``path="grid"`` is one launch (K5b),
     ``path="vmap"`` runs ``significant_bit_widths`` per client.  Each row
-    equals the unbatched call on that client."""
+    equals the unbatched call on that client; the planes are cast to
+    int32 first, as in the reference."""
     if path not in ("grid", "vmap"):
         raise ValueError(f"unknown path {path!r}")
-    _check_words(deltas, 3, "deltas")
+    _check_ndim(deltas, 3, "deltas")
     _check_tile(block_h, block_w)
+    deltas = _as_words(deltas)
     if path == "vmap":
         return torch.stack([significant_bit_widths(d, block_h=block_h, block_w=block_w)
                             for d in deltas])
@@ -452,23 +518,29 @@ def _check_plane(depth: torch.Tensor, ndim: int, bits: int) -> int:
     return ratio
 
 
-def _quantize_launch(depths, lo, hi, bits):
-    """One launch of the quantizer over (..., W) planes."""
+def _quantize_launch(depths, lo, hi, bits, write_recon=False):
+    """One launch of the quantizer over (..., W) planes: (words, recon,
+    launched); with ``write_recon`` the launch that also writes K7's
+    values of the words, else recon is None."""
     device = depths.device
     ratio = 32 // bits
     if depths.numel() >= 2**31:
         raise ValueError("the kernel indexes the planes with 32-bit ints")
     out = torch.empty((*depths.shape[:-1], depths.shape[-1] // ratio), dtype=torch.int32,
                       device=device)
+    recon = (torch.empty(depths.shape, dtype=torch.float32, device=device) if write_recon
+             else None)
     if out.numel() == 0:
-        return out, False
+        return out, recon, False
     x = _build.kernel_input("depth", depths, device)
     with torch.cuda.device(device):
         err = _build.library().quantize_pack_launch(
-            x.data_ptr(), out.data_ptr(), out.numel(), bits, lo, hi,
-            _ref.quant_step(lo, hi, bits), _build.stream_handle(device))
+            x.data_ptr(), out.data_ptr(), None if recon is None else recon.data_ptr(),
+            out.numel(), bits, lo, hi, _ref.quant_step(lo, hi, bits),
+            _build.stream_handle(device))
     _build.check(err, "quantize_pack")
-    return out, True
+    launches["quantize_pack_recon"] += write_recon
+    return out, recon, True
 
 
 def quantize_pack(
@@ -486,9 +558,30 @@ def quantize_pack(
     _check_plane(depth, 2, bits)
     if not depth.is_cuda:
         return quantize_pack_plain(depth, lo, hi, bits=bits)
-    out, launched = _quantize_launch(depth, lo, hi, bits)
+    out, _, launched = _quantize_launch(depth, lo, hi, bits)
     launches["quantize_pack"] += launched
     return out
+
+
+def _quantize_pack_recon(
+    depth: torch.Tensor,  # (H, W) float
+    lo: float,
+    hi: float,
+    *,
+    bits: int = 8,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``quantize_pack`` and ``unpack_dequantize`` of its words, bit for
+    bit: ``(words (H, W*bits/32) i32, recon (H, W) f32)``.  One launch of
+    K6 that writes both: the quantized uplink's keyframe and the
+    receiver's reconstruction of it, the closed loop's next reference
+    (``wire.encode_keyframe``)."""
+    _check_plane(depth, 2, bits)
+    if not depth.is_cuda:
+        words = quantize_pack_plain(depth, lo, hi, bits=bits)
+        return words, unpack_dequantize_plain(words, lo, hi, bits=bits)
+    words, recon, launched = _quantize_launch(depth, lo, hi, bits, write_recon=True)
+    launches["quantize_pack"] += launched
+    return words, recon
 
 
 def quantize_pack_batched(
@@ -510,7 +603,7 @@ def quantize_pack_batched(
         return torch.stack([quantize_pack(d, lo, hi, bits=bits) for d in depths])
     if not depths.is_cuda:
         return quantize_pack_plain(depths, lo, hi, bits=bits)
-    out, launched = _quantize_launch(depths, lo, hi, bits)
+    out, _, launched = _quantize_launch(depths, lo, hi, bits)
     launches["quantize_pack_batched"] += launched
     return out
 

@@ -9,6 +9,12 @@ the uplink runs:
   words and mask; the decode's dequantization and mask select); on CPU
   tensors the reference's composition of the plain versions (K6, K7,
   K6, K7 and K3's mask at threshold ``step/2``; K7 and the select);
+  :func:`encode_keyframe`, a quantized keyframe and the receiver's
+  reconstruction of it (one launch of K6 that also writes K7's values);
+* :func:`entropy_residuals`, the entropy stage's device half: each
+  residual plane and its tiles' significant-bit widths (one launch of
+  K3 or K3b that also writes K5's widths), which
+  ``codec.ref.entropy_encode_words`` then codes on the host;
 * the sequenced stream machines of keyframes and XOR deltas with
   loss-driven resync (:class:`DeltaStreamEncoder`,
   :class:`DeltaStreamDecoder`; on the card one launch a delta frame
@@ -71,6 +77,46 @@ def decode_frame(
     cropped, as in the reference."""
     return kernels._quant_decode(words, mask, ref, lo, hi, bits=bits, block_h=block_h,
                                  block_w=block_w)
+
+
+def encode_keyframe(
+    frame: torch.Tensor,  # (H, W) float
+    lo: float,
+    hi: float,
+    *,
+    bits: int = 8,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A quantized keyframe: ``(words (H, W*bits/32) i32, recon (H, W)
+    f32)``, ``codec.ref.quantize_pack`` of the frame and
+    ``codec.ref.unpack_dequantize`` of its words, bit for bit.  ``recon``
+    is what the receiver decodes, so it is the reference the next
+    :func:`encode_frame` of a closed loop is encoded against.  W must be
+    a multiple of ``32 // bits``."""
+    return kernels._quantize_pack_recon(frame, lo, hi, bits=bits)
+
+
+# ---------------------------------------------------------------------------
+# the entropy stage's device half
+# ---------------------------------------------------------------------------
+
+
+def entropy_residuals(
+    frames: torch.Tensor,  # (H, W) or (B, H, W) float
+    refs: torch.Tensor,  # like frames
+    *,
+    threshold: float = 0.0,
+    block_h: int = DEFAULT_BLOCK_H,
+    block_w: int = DEFAULT_BLOCK_W,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The XOR residual planes of ``frames`` against ``refs`` and their
+    per-tile significant-bit widths: ``(delta_bits, mask, widths)``, the
+    reference's ``delta_encode`` (``delta_encode_batched`` for B planes)
+    and ``significant_bit_widths`` of its delta, bit for bit.  A tile's
+    coded size is ``ceil(tile_samples * width / 8) + 1`` bytes; the host
+    coder (``codec.ref.entropy_encode_words``) takes the delta from
+    here."""
+    return kernels._delta_encode_widths(frames, refs, threshold=threshold,
+                                        block_h=block_h, block_w=block_w)
 
 
 # ---------------------------------------------------------------------------

@@ -50,6 +50,16 @@
 //     (NaN payloads and signed zeros included, as the bits are stored, not
 //     floats).  The stream encoder's closed loop takes its next reference
 //     from it instead of launching K4.
+//   * A launch with widths (widths != nullptr, with a delta) is the same
+//     kernel built with K5's work: each thread keeps the unsigned max of
+//     the XOR words it computes, in the same pass as the tile max, carried
+//     through the same barrier beside it, and thread 0 writes changed ? 32
+//     - __clz(max) : 0, the bit length of the tile's largest stored delta
+//     word (0 on an unchanged tile, whose stored delta is 0 even where the
+//     XOR is not: a signed-zero or a NaN tile).  The entropy stage takes
+//     the residual and its widths from one launch instead of K3 then K5.
+//   * Each output is a template flag: the launches without it compile to
+//     the code they had without the flag.
 //   * K3 is the B = 1 launch of the same kernel: row b of K3b equals K3
 //     on client b bit for bit.
 //
@@ -148,16 +158,30 @@ __device__ __forceinline__ void store_recon(int* __restrict__ d, const int (&off
   store_words(d, off, vector, x);
 }
 
-template <bool kWriteDelta, bool kWriteRecon = false>
+// The XOR words' unsigned max over the 4 pixels (0 for a pixel past the
+// tile, which reads 0 and 0).
+__device__ __forceinline__ uint32_t xor_max(uint32_t m, const float (&fv)[4],
+                                            const float (&rv)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    m = max(m, static_cast<uint32_t>(__float_as_int(fv[j]) ^ __float_as_int(rv[j])));
+  }
+  return m;
+}
+
+template <bool kWriteDelta, bool kWriteRecon = false, bool kWriteWidths = false>
 __global__ void __launch_bounds__(kThreads)
 delta_encode_kernel(const float* __restrict__ frames,  // (B, H, W)
                     const float* __restrict__ refs,    // (B, H, W)
                     int* __restrict__ delta,           // (B, H, W); unused if !kWriteDelta
                     int* __restrict__ recon,           // (B, H, W) float bits; if kWriteRecon
                     float* __restrict__ mask,          // (B, tiles_h, tiles_w)
+                    int* __restrict__ widths,          // (B, tiles_h, tiles_w); if kWriteWidths
                     int height, int width, int block_h, int block_w,
                     int tiles_h, int tiles_w, float threshold, bool vector) {
+  static_assert(kWriteDelta || !kWriteWidths, "the widths are those of the stored delta");
   __shared__ float warp_max[kWarps];
+  __shared__ uint32_t warp_xor_max[kWriteWidths ? kWarps : 1];
 
   const int tiles = tiles_h * tiles_w;
   const int b = blockIdx.x / tiles;
@@ -175,8 +199,10 @@ delta_encode_kernel(const float* __restrict__ frames,  // (B, H, W)
   chunk_offsets(0, pixels, cols, width, row0, col0, vector, off);
   load_chunk(f, r, off, vector, fv, rv);
   float m = 0.0f;  // every |f - r| is >= 0 or NaN
+  uint32_t xm = 0;  // the XOR words' max; if kWriteWidths
 #pragma unroll
   for (int j = 0; j < 4; ++j) m = nan_max(m, fabsf(fv[j] - rv[j]));
+  if constexpr (kWriteWidths) xm = xor_max(xm, fv, rv);
   for (int first = kChunk; first < pixels; first += kChunk) {  // tiles over 1,024 pixels
     int o[4];
     float fx[4], rx[4];
@@ -184,18 +210,32 @@ delta_encode_kernel(const float* __restrict__ frames,  // (B, H, W)
     load_chunk(f, r, o, vector, fx, rx);
 #pragma unroll
     for (int j = 0; j < 4; ++j) m = nan_max(m, fabsf(fx[j] - rx[j]));
+    if constexpr (kWriteWidths) xm = xor_max(xm, fx, rx);
   }
 
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) m = nan_max(m, __shfl_down_sync(0xffffffffu, m, o));
   if (lane == 0) warp_max[threadIdx.x >> 5] = m;
+  if constexpr (kWriteWidths) {
+    xm = __reduce_max_sync(0xffffffffu, xm);
+    if (lane == 0) warp_xor_max[threadIdx.x >> 5] = xm;
+  }
   __syncthreads();
   m = warp_max[0];
 #pragma unroll
   for (int w = 1; w < kWarps; ++w) m = nan_max(m, warp_max[w]);
   const bool changed = m > threshold;  // false for NaN
   if (threadIdx.x == 0) mask[static_cast<size_t>(b) * tiles + tile] = changed ? 1.0f : 0.0f;
+  if constexpr (kWriteWidths) {
+    if (threadIdx.x == 0) {
+      xm = warp_xor_max[0];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) xm = max(xm, warp_xor_max[w]);
+      widths[static_cast<size_t>(b) * tiles + tile] =
+          changed ? 32 - __clz(static_cast<int>(xm)) : 0;
+    }
+  }
   if (!kWriteDelta) return;
 
   int* d = delta + plane;
@@ -227,15 +267,19 @@ delta_decode_kernel(const int* __restrict__ delta, const int* __restrict__ ref,
 // ceil(height / block_h) x ceil(width / block_w) per client; the caller
 // keeps num_clients * height * width below 2^31.  delta == nullptr
 // launches the mask-only kernel; recon != nullptr (with a delta) the
-// kernel that also writes the new reference.  Returns
-// cudaErrorInvalidValue for a recon without a delta, else
-// cudaGetLastError().
+// kernel that also writes the new reference; widths != nullptr (with a
+// delta) the kernel that also writes each tile's bit width.  Returns
+// cudaErrorInvalidValue for a recon or widths without a delta, or both,
+// else cudaGetLastError().
 extern "C" int delta_encode_launch(const float* frames, const float* refs,
-                                   int* delta, float* recon, float* mask,
+                                   int* delta, float* recon, float* mask, int* widths,
                                    int num_clients, int height, int width,
                                    int block_h, int block_w, float threshold,
                                    void* stream) {
-  if (recon != nullptr && delta == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if ((recon != nullptr || widths != nullptr) && delta == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (recon != nullptr && widths != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles_h = (height + block_h - 1) / block_h;
   const int tiles_w = (width + block_w - 1) / block_w;
   const uintptr_t addresses = reinterpret_cast<uintptr_t>(frames) |
@@ -248,16 +292,20 @@ extern "C" int delta_encode_launch(const float* frames, const float* refs,
   int* recon_bits = reinterpret_cast<int*>(recon);
   if (recon != nullptr) {
     delta_encode_kernel<true, true><<<grid, kThreads, 0, s>>>(
-        frames, refs, delta, recon_bits, mask, height, width, block_h, block_w, tiles_h,
-        tiles_w, threshold, vector);
+        frames, refs, delta, recon_bits, mask, widths, height, width, block_h, block_w,
+        tiles_h, tiles_w, threshold, vector);
+  } else if (widths != nullptr) {
+    delta_encode_kernel<true, false, true><<<grid, kThreads, 0, s>>>(
+        frames, refs, delta, recon_bits, mask, widths, height, width, block_h, block_w,
+        tiles_h, tiles_w, threshold, vector);
   } else if (delta != nullptr) {
     delta_encode_kernel<true><<<grid, kThreads, 0, s>>>(
-        frames, refs, delta, recon_bits, mask, height, width, block_h, block_w, tiles_h,
-        tiles_w, threshold, vector);
+        frames, refs, delta, recon_bits, mask, widths, height, width, block_h, block_w,
+        tiles_h, tiles_w, threshold, vector);
   } else {
     delta_encode_kernel<false><<<grid, kThreads, 0, s>>>(
-        frames, refs, delta, recon_bits, mask, height, width, block_h, block_w, tiles_h,
-        tiles_w, threshold, vector);
+        frames, refs, delta, recon_bits, mask, widths, height, width, block_h, block_w,
+        tiles_h, tiles_w, threshold, vector);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,11 +24,20 @@
 //     the plane 16-byte aligned they move 16-byte vectors.  A word depends
 //     only on its own pixels, so the reference's zero-padding to (8, 128)
 //     tiles never reaches a kept word; nothing is padded here.
-//   * K5: one block per (block_h, block_w) tile, an unsigned max in
-//     registers, __reduce_max_sync across each warp, one shared-memory
-//     pass across warps, and 32 - __clz(m) (__clz(0) = 32, so a zero
-//     tile reads 0).  The ragged edge is masked: a padded word would be 0
-//     and change no max.
+//   * A keyframe launch (recon != nullptr) is K6 built with a second store:
+//     each thread dequantizes the codes it just packed, from registers, as
+//     K7 does, and writes K7's values of its word (float4 stores on the
+//     vector path).  The closed loop's next reference comes from the same
+//     launch as the words; K7 does not run.
+//   * K5: one warp per (block_h, block_w) tile and one tile a block, no
+//     shared memory and no barrier.  Rows go in batches of kRowsInFlight
+//     outside a lane-strided column loop, which replaces per-word
+//     division; a lane loads a batch's words of its column into registers
+//     before their max, so they are in flight together (an 8x128 tile is
+//     4 batches of 8 loads a lane); then one __reduce_max_sync over the
+//     unsigned words and 32 - __clz(m) (__clz(0) = 32, so a zero tile
+//     reads 0).  The ragged edge is masked: a padded word would be 0 and
+//     change no max.  The max of unsigned words does not depend on order.
 //   * Rounding is the reference oracle's (codec/ref.py), bit for bit:
 //     __fsub_rn, a true division __fdiv_rn (never a reciprocal multiply,
 //     which moves half-step ties), rintf (half to even) after the clip,
@@ -90,15 +99,21 @@ __device__ __forceinline__ uint32_t quantize(float x, float lo, float hi,
   return static_cast<uint32_t>(q);
 }
 
-template <int BITS>
+__device__ __forceinline__ float dequantize(uint32_t code, float lo, float step) {
+  return __fadd_rn(lo, __fmul_rn(static_cast<float>(code), step));
+}
+
+template <int BITS, bool kWriteRecon = false>
 __global__ void __launch_bounds__(kThreads)
 quantize_pack_kernel(const float* __restrict__ x, int* __restrict__ words,
+                     float* __restrict__ recon,  // K7's values; if kWriteRecon
                      int n_words, float lo, float hi, float step, bool vec4) {
   constexpr int kRatio = 32 / BITS;
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n_words) return;
   const float top = static_cast<float>((1u << BITS) - 1u);
   const float* px = x + static_cast<size_t>(i) * kRatio;
+  float* pr = recon + static_cast<size_t>(i) * kRatio;
   uint32_t word = 0;
   if constexpr (kRatio % 4 == 0) {
     if (vec4) {
@@ -106,10 +121,19 @@ quantize_pack_kernel(const float* __restrict__ x, int* __restrict__ words,
 #pragma unroll
       for (int v = 0; v < kRatio / 4; ++v) {
         const float4 f = p4[v];
-        word |= quantize(f.x, lo, hi, step, top) << ((4 * v + 0) * BITS);
-        word |= quantize(f.y, lo, hi, step, top) << ((4 * v + 1) * BITS);
-        word |= quantize(f.z, lo, hi, step, top) << ((4 * v + 2) * BITS);
-        word |= quantize(f.w, lo, hi, step, top) << ((4 * v + 3) * BITS);
+        const uint32_t c0 = quantize(f.x, lo, hi, step, top);
+        const uint32_t c1 = quantize(f.y, lo, hi, step, top);
+        const uint32_t c2 = quantize(f.z, lo, hi, step, top);
+        const uint32_t c3 = quantize(f.w, lo, hi, step, top);
+        word |= c0 << ((4 * v + 0) * BITS);
+        word |= c1 << ((4 * v + 1) * BITS);
+        word |= c2 << ((4 * v + 2) * BITS);
+        word |= c3 << ((4 * v + 3) * BITS);
+        if constexpr (kWriteRecon) {
+          reinterpret_cast<float4*>(pr)[v] =
+              make_float4(dequantize(c0, lo, step), dequantize(c1, lo, step),
+                          dequantize(c2, lo, step), dequantize(c3, lo, step));
+        }
       }
       words[i] = static_cast<int>(word);
       return;
@@ -117,13 +141,11 @@ quantize_pack_kernel(const float* __restrict__ x, int* __restrict__ words,
   }
 #pragma unroll
   for (int k = 0; k < kRatio; ++k) {
-    word |= quantize(px[k], lo, hi, step, top) << (k * BITS);
+    const uint32_t c = quantize(px[k], lo, hi, step, top);
+    word |= c << (k * BITS);
+    if constexpr (kWriteRecon) pr[k] = dequantize(c, lo, step);
   }
   words[i] = static_cast<int>(word);
-}
-
-__device__ __forceinline__ float dequantize(uint32_t code, float lo, float step) {
-  return __fadd_rn(lo, __fmul_rn(static_cast<float>(code), step));
 }
 
 template <int BITS>
@@ -322,43 +344,57 @@ quant_decode_kernel(const int* __restrict__ words,  // (H, W / ratio)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kRowsInFlight = 8;  // K5's rows a lane loads before their max
+
+// K5b (K5 at B = 1): one warp per tile of each plane, one tile a block.
+// Block t of the flat (B, tiles_h, tiles_w) grid writes widths[t].
+__global__ void __launch_bounds__(32)
 sig_width_kernel(const int* __restrict__ words,  // (B, H, W)
                  int* __restrict__ widths,       // (B, tiles_h, tiles_w)
-                 int height, int width, int block_h, int block_w,
-                 int tiles_h, int tiles_w) {
-  __shared__ uint32_t warp_max[kThreads / 32];
-
+                 int height, int width, int block_h, int block_w, int tiles_h,
+                 int tiles_w) {
+  const int t = blockIdx.x;
+  const int lane = threadIdx.x;
   const int tiles = tiles_h * tiles_w;
-  const int b = blockIdx.x / tiles;
-  const int tile = blockIdx.x % tiles;
+  const int b = t / tiles;
+  const int tile = t % tiles;
   const int row0 = (tile / tiles_w) * block_h;
   const int col0 = (tile % tiles_w) * block_w;
-  const uint32_t* d = reinterpret_cast<const uint32_t*>(words) +
-                      static_cast<size_t>(b) * height * width;
   const int rows = min(block_h, height - row0);
   const int cols = min(block_w, width - col0);
-  const int n = rows * cols;
+  const uint32_t* d = reinterpret_cast<const uint32_t*>(words) +
+                      (static_cast<size_t>(b) * height + row0) * width + col0;
 
   uint32_t m = 0;
-  for (int k = threadIdx.x; k < n; k += kThreads) {
-    m = max(m, d[static_cast<size_t>(row0 + k / cols) * width + col0 + k % cols]);
+  for (int r = 0; r < rows; r += kRowsInFlight) {
+    const uint32_t* batch = d + static_cast<size_t>(r) * width;
+    for (int c = lane; c < cols; c += 32) {
+      uint32_t v[kRowsInFlight];
+#pragma unroll
+      for (int j = 0; j < kRowsInFlight; ++j) {
+        v[j] = r + j < rows ? batch[static_cast<size_t>(j) * width + c] : 0u;
+      }
+#pragma unroll
+      for (int j = 0; j < kRowsInFlight; ++j) m = max(m, v[j]);
+    }
   }
   m = __reduce_max_sync(0xffffffffu, m);
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kThreads / 32; ++w) m = max(m, warp_max[w]);
-    widths[static_cast<size_t>(b) * tiles + tile] = 32 - __clz(static_cast<int>(m));
-  }
+  if (lane == 0) widths[t] = 32 - __clz(static_cast<int>(m));
 }
 
 template <int BITS>
-cudaError_t launch_quantize(const float* x, int* words, int n_words, float lo,
+cudaError_t launch_quantize(const float* x, int* words, float* recon, int n_words, float lo,
                             float hi, float step, cudaStream_t stream) {
-  const bool vec4 = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  quantize_pack_kernel<BITS><<<(n_words + kThreads - 1) / kThreads, kThreads, 0,
-                               stream>>>(x, words, n_words, lo, hi, step, vec4);
+  const bool vec4 = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(recon)) &
+                     15) == 0;
+  const int blocks = (n_words + kThreads - 1) / kThreads;
+  if (recon != nullptr) {
+    quantize_pack_kernel<BITS, true><<<blocks, kThreads, 0, stream>>>(x, words, recon, n_words,
+                                                                      lo, hi, step, vec4);
+  } else {
+    quantize_pack_kernel<BITS><<<blocks, kThreads, 0, stream>>>(x, words, recon, n_words, lo,
+                                                                hi, step, vec4);
+  }
   return cudaGetLastError();
 }
 
@@ -409,19 +445,20 @@ cudaError_t launch_decode(const int* words, const float* mask, const float* ref,
 }  // namespace
 
 // K6 (one plane) and K6b (B planes) on `stream`: n_words packed words from
-// n_words * 32 / bits pixels.  The caller keeps the pixel count below 2^31.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for bits outside
-// {1, 2, 4, 8, 16}.
-extern "C" int quantize_pack_launch(const float* x, int* words, int n_words,
+// n_words * 32 / bits pixels; unless recon is null, also K7's values of
+// those words into recon (the keyframe launch).  The caller keeps the pixel
+// count below 2^31.  Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for bits outside {1, 2, 4, 8, 16}.
+extern "C" int quantize_pack_launch(const float* x, int* words, float* recon, int n_words,
                                     int bits, float lo, float hi, float step,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bits) {
-    case 1: return launch_quantize<1>(x, words, n_words, lo, hi, step, s);
-    case 2: return launch_quantize<2>(x, words, n_words, lo, hi, step, s);
-    case 4: return launch_quantize<4>(x, words, n_words, lo, hi, step, s);
-    case 8: return launch_quantize<8>(x, words, n_words, lo, hi, step, s);
-    case 16: return launch_quantize<16>(x, words, n_words, lo, hi, step, s);
+    case 1: return launch_quantize<1>(x, words, recon, n_words, lo, hi, step, s);
+    case 2: return launch_quantize<2>(x, words, recon, n_words, lo, hi, step, s);
+    case 4: return launch_quantize<4>(x, words, recon, n_words, lo, hi, step, s);
+    case 8: return launch_quantize<8>(x, words, recon, n_words, lo, hi, step, s);
+    case 16: return launch_quantize<16>(x, words, recon, n_words, lo, hi, step, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -442,18 +479,17 @@ extern "C" int unpack_dequantize_launch(const int* words, float* out, int n_word
 }
 
 // K5 (num_planes = 1) and K5b on `stream`: one width per tile of the
-// ceil(height / block_h) x ceil(width / block_w) grid of each plane.  The
-// caller keeps num_planes * tiles below 2^31.  Returns cudaGetLastError().
+// ceil(height / block_h) x ceil(width / block_w) grid of each plane, one
+// warp a tile.  The caller keeps num_planes * height * width below 2^31.
+// Returns cudaGetLastError().
 extern "C" int significant_bit_widths_launch(const int* words, int* widths,
                                              int num_planes, int height, int width,
-                                             int block_h, int block_w,
-                                             void* stream) {
+                                             int block_h, int block_w, void* stream) {
   const int tiles_h = (height + block_h - 1) / block_h;
   const int tiles_w = (width + block_w - 1) / block_w;
-  sig_width_kernel<<<num_planes * tiles_h * tiles_w, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  sig_width_kernel<<<num_planes * tiles_h * tiles_w, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       words, widths, height, width, block_h, block_w, tiles_h, tiles_w);
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
 }
 
 // wire.encode_frame's one launch on `stream`: the words of the (height,

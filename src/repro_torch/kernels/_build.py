@@ -37,9 +37,9 @@ _SIGNATURES = {
     "render_score_sums_launch": [_P] * 5 + [_I] * 4 + [_F] * 2 + [_P],
     "render_score_max_active_clusters": [_I] * 2,
     "pso_update_launch": [_P] * 10 + [_I] * 5 + [_F] * 4 + [_P],
-    "delta_encode_launch": [_P] * 5 + [_I] * 5 + [_F, _P],
+    "delta_encode_launch": [_P] * 6 + [_I] * 5 + [_F, _P],
     "delta_decode_launch": [_P] * 4 + [_I, _P],
-    "quantize_pack_launch": [_P] * 2 + [_I] * 2 + [_F] * 3 + [_P],
+    "quantize_pack_launch": [_P] * 3 + [_I] * 2 + [_F] * 3 + [_P],
     "unpack_dequantize_launch": [_P] * 2 + [_I] * 2 + [_F] * 2 + [_P],
     "significant_bit_widths_launch": [_P] * 2 + [_I] * 5 + [_P],
     "quant_encode_launch": [_P] * 4 + [_I] * 5 + [_F] * 4 + [_P],

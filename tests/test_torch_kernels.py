@@ -217,9 +217,10 @@ def _old_quant_decode(words, mask, ref, lo, hi, bits, block_h, block_w):
 
 def test_fused_codec_wrappers_take_the_plain_versions_on_cpu():
     """On the CPU the one-launch encode and decode of the quantized
-    format, K3 with the reconstruction and the two-output K4 run their
-    plain compositions, exactly, and count no launch; the reconstruction
-    and both of K4's outputs are new tensors."""
+    format, K3 with the reconstruction, the two-output K4, K3/K3b with
+    the widths and K6's keyframe launch run their plain compositions,
+    exactly, and count no launch; the reconstruction and both of K4's
+    outputs are new tensors."""
     before = _counts()
     x = _quant_planes(16, 256, 0.1, 10.0, 8, "cpu", b=2)
     for bits in (16, 8, 4, 2):
@@ -237,6 +238,19 @@ def test_fused_codec_wrappers_take_the_plain_versions_on_cpu():
     state, copy = ck._delta_decode_pair(delta, ref)
     assert _bit_equal(state, recon) and _bit_equal(copy, recon)
     assert len({recon.data_ptr(), state.data_ptr(), copy.data_ptr(), ref.data_ptr()}) == 4
+    frames, refs = _codec_pair(16, 256, "cpu", b=2)
+    for f, r in ((frame, ref), (frames, refs)):
+        d, m, widths = ck._delta_encode_widths(f, r, threshold=0.01)
+        want_d, want_m = ck.delta_encode_plain(*((f, r) if f.dim() == 3 else (f[None], r[None])),
+                                               threshold=0.01)
+        want_w = ck.significant_bit_widths_plain(want_d)
+        if f.dim() == 2:
+            want_d, want_m, want_w = want_d[0], want_m[0], want_w[0]
+        assert torch.equal(d, want_d) and _bit_equal(m, want_m) and torch.equal(widths, want_w)
+    for bits in cref.PACKABLE_BITS:
+        words, values = ck._quantize_pack_recon(x[1], 0.1, 10.0, bits=bits)
+        assert torch.equal(words, ck.quantize_pack_plain(x[1], 0.1, 10.0, bits=bits))
+        assert _bit_equal(values, ck.unpack_dequantize_plain(words, 0.1, 10.0, bits=bits))
     assert _counts() == before
 
 
@@ -263,6 +277,14 @@ def test_fused_codec_wrappers_validate_their_inputs():
         ck._delta_decode_pair(delta, x[0, :8])
     with pytest.raises(ValueError):
         ck._delta_encode_recon(x[1], x[0], block_w=0)
+    with pytest.raises(ValueError):
+        ck._delta_encode_widths(x[1], x[0, :8])
+    with pytest.raises(ValueError):
+        ck._delta_encode_widths(x, x[0])
+    with pytest.raises(ValueError, match="pack ratio"):
+        ck._quantize_pack_recon(x[1, :, :250], 0.0, 1.0, bits=8)
+    with pytest.raises(ValueError):
+        ck._quantize_pack_recon(x, 0.0, 1.0)  # (B, H, W) where (H, W) is due
 
 
 def test_batched_wrappers_reject_bad_path_and_shapes():
@@ -791,3 +813,92 @@ def test_stream_machines_on_the_card_launch_once_a_delta(cuda, threshold):
                                              "delta_decode": 1, "delta_decode_pair": 1}
         assert out.is_cuda and _bit_equal(out.cpu(), want)
         out.add_(1.0)  # the decoder's state is another tensor
+
+
+# K5's launches: (h, w, block_h, block_w), on widths that are and are not
+# multiples of 4, ragged tiles included
+WIDTH_CASES = [(128, 128, 8, 128), (128, 128, 32, 64), (240, 322, 8, 128), (240, 320, 32, 64),
+               (240, 322, 9, 130), (128, 128, 9, 130)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w,block_h,block_w", WIDTH_CASES)
+def test_bit_width_kernel_paths_match_plain(cuda, h, w, block_h, block_w):
+    """K5b (B = 4) and K5, one warp a tile, bit for bit against the plain
+    version on the CPU copy, on aligned planes and one word off 16-byte
+    alignment; a sign-bit tile reads 32 and an all-zero tile 0; K5b's
+    rows equal K5."""
+    deltas = _residual_planes(h, w, cuda, seed=h + w)
+    deltas[:, :block_h, -block_w:] = 0  # tile (0, -1) all zero: width 0
+    deltas[:, block_h, -1] = -1  # tile (1, -1) holds a sign-bit word: width 32
+    tiles = (-(-h // block_h), -(-w // block_w))
+    for d in (deltas, _off_alignment(deltas)):
+        want = ck.significant_bit_widths_plain(d.cpu(), block_h=block_h, block_w=block_w)
+        assert want.shape == (4, *tiles)
+        assert bool((want[:, 0, -1] == 0).all()) and bool((want[:, 1, -1] == 32).all())
+        before = dict(ck.launches)
+        got = ck.significant_bit_widths_batched(d, block_h=block_h, block_w=block_w)
+        assert _launch_delta(before) == {"significant_bit_widths_batched": 1}
+        assert torch.equal(got.cpu(), want)
+        for i in range(4):
+            assert torch.equal(ck.significant_bit_widths(d[i], block_h=block_h,
+                                                         block_w=block_w), got[i])
+
+
+WIDTHS_LAUNCH_CASES = [(128, 128, 8, 128), (240, 322, 8, 128), (240, 320, 32, 64),
+                       (240, 322, 9, 130)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("threshold", [0.0, 0.01])
+@pytest.mark.parametrize("h,w,block_h,block_w", WIDTHS_LAUNCH_CASES)
+def test_delta_encode_widths_matches_k3_then_k5(cuda, h, w, block_h, block_w, threshold):
+    """K3 and K3b (B = 4) with the widths equal K3 then K5, and K3b then
+    K5b, and the CPU's plain composition bit for bit: delta, mask and
+    widths, with the NaN and signed-zero tiles (width 0), on aligned
+    planes, at a width not a multiple of 4 and one float off alignment
+    (the scalar path), and on tiles of over 1,024 pixels; each a launch
+    counted as K3's or K3b's, the batched one through the entropy stage's
+    wire.entropy_residuals; K3b's rows equal K3's."""
+    frames, refs = _codec_pair(h, w, cuda, b=4, seed=h + w)
+    tile = dict(threshold=threshold, block_h=block_h, block_w=block_w)
+    for f, r in ((frames, refs), (_off_alignment(frames), _off_alignment(refs))):
+        before = dict(ck.launches)
+        delta, mask, widths = wire.entropy_residuals(f, r, **tile)
+        assert _launch_delta(before) == {"delta_encode_batched": 1, "delta_encode_widths": 1}
+        k3_delta, k3_mask = ck.delta_encode_batched(f, r, **tile)
+        k5 = ck.significant_bit_widths_batched(k3_delta, block_h=block_h, block_w=block_w)
+        assert torch.equal(delta, k3_delta) and _bit_equal(mask, k3_mask)
+        assert torch.equal(widths, k5) and widths[0, 0, 0] == 0
+        pd, pm, pw = ck._delta_encode_widths(f.cpu(), r.cpu(), **tile)
+        assert torch.equal(delta.cpu(), pd) and _bit_equal(mask.cpu(), pm)
+        assert torch.equal(widths.cpu(), pw)
+        for i in range(4):
+            before = dict(ck.launches)
+            di, mi, wi = ck._delta_encode_widths(f[i], r[i], **tile)
+            assert _launch_delta(before) == {"delta_encode": 1, "delta_encode_widths": 1}
+            assert torch.equal(di, delta[i]) and _bit_equal(mi, mask[i])
+            assert torch.equal(wi, widths[i])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (0.1, 10.0)])
+@pytest.mark.parametrize("h,w", [(128, 128), (240, 320)])
+def test_quantize_pack_recon_matches_k6_then_k7(cuda, h, w, lo, hi):
+    """K6's keyframe launch at every packable width equals K6 then K7 and
+    the CPU's plain composition bit for bit (words, and the
+    reconstruction's bits), on planes with ties, NaN, +-inf and -0.0,
+    aligned and one float off 16-byte alignment (the scalar path); it is
+    one launch, counted as K6's, through wire.encode_keyframe."""
+    for bits in cref.PACKABLE_BITS:
+        x = _quant_planes(h, w, lo, hi, bits, cuda, b=1, seed=bits + h)[0]
+        for plane in (x, _off_alignment(x)):
+            before = dict(ck.launches)
+            words, recon = wire.encode_keyframe(plane, lo, hi, bits=bits)
+            assert _launch_delta(before) == {"quantize_pack": 1, "quantize_pack_recon": 1}
+            k6 = ck.quantize_pack(plane, lo, hi, bits=bits)
+            assert torch.equal(words, k6)
+            assert _bit_equal(recon, ck.unpack_dequantize(k6, lo, hi, bits=bits))
+            pw, pr = ck._quantize_pack_recon(plane.cpu(), lo, hi, bits=bits)
+            assert torch.equal(words.cpu(), pw) and _bit_equal(recon.cpu(), pr)
+            assert recon.shape == (h, w) and recon.data_ptr() != plane.data_ptr()

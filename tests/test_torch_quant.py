@@ -1,7 +1,8 @@
 """The port's quantized wire format against the JAX reference: the
-quantizer and its inverse (K6, K6b and K7 paths), ``encode_frame`` and
-``decode_frame``, the entropy stage's per-tile widths (K5, K5b) and the
-host entropy coder.
+quantizer and its inverse (K6, K6b and K7 paths, and K6's keyframe launch
+with K7's values), ``encode_frame`` and ``decode_frame``, the entropy
+stage's per-tile widths (K5, K5b, and K3/K3b's launch with the widths)
+and the host entropy coder.
 
 Inputs are numpy arrays made from a seed and handed to both packages.
 Every comparison is bit for bit (``np.array_equal`` on the int32 words,
@@ -395,7 +396,153 @@ def test_quant_wrappers_validate_their_inputs():
         tck.quantize_pack(x[None], 0.0, 1.0)  # (B, H, W) where (H, W) is due
     with pytest.raises(TypeError):
         tck.unpack_dequantize(torch.zeros((16, 64), dtype=torch.int64), 0.0, 1.0)
-    with pytest.raises(TypeError):
-        tck.significant_bit_widths(torch.zeros((8, 128)))
+    # K5 casts its input as the reference's astype(jnp.int32) does: a
+    # float32 plane of 3.7 reads [[2]], an int64 plane of 5 [[3]]
+    for plane in (np.full((8, 128), 3.7, np.float32), np.full((8, 128), 5, np.int64)):
+        want = np.asarray(jck.significant_bit_widths(jnp.asarray(plane)))
+        got = tck.significant_bit_widths(torch.from_numpy(plane))
+        assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+        assert int(want[0, 0]) == (2 if plane.dtype == np.float32 else 3)
     with pytest.raises(ValueError, match="not divisible"):
         tcr.quantize_pack(torch.zeros((20, 200)), 0.0, 1.0)  # the oracle is shape-strict
+
+
+# K5's input dtypes: the reference casts with astype(jnp.int32)
+CAST_DTYPES = [np.int64, np.int16, np.uint8, np.float32]
+
+
+@pytest.mark.parametrize("dtype", CAST_DTYPES)
+def test_significant_bit_widths_cast_their_input_as_the_reference(dtype):
+    """K5's wrapper and K5b's grid and vmap paths on planes that are not
+    int32 equal the Pallas kernels, which cast with astype(jnp.int32):
+    negative integers read width 32, a float truncates toward zero; the
+    values stay inside int32 and finite."""
+    rng = np.random.default_rng(np.dtype(dtype).itemsize)
+    if dtype == np.float32:
+        planes = rng.uniform(-3.0e4, 3.0e4, (2, 20, 200)).astype(dtype)
+        planes[:, :8, :128] = rng.uniform(0.0, 9.9, (2, 8, 128))  # widths 0 to 4
+    else:
+        info = np.iinfo(dtype)
+        lo, hi = max(info.min, -(2**31)), min(info.max, 2**31 - 1)
+        planes = rng.integers(lo, hi, (2, 20, 200), endpoint=True).astype(dtype)
+        planes[:, :8, :128] = rng.integers(0, min(hi, 100), (2, 8, 128))
+    planes[1, 8:16, 128:] = 0
+    want = np.asarray(jck.significant_bit_widths_batched(jnp.asarray(planes)))
+    for path in ("grid", "vmap"):
+        got = tck.significant_bit_widths_batched(torch.from_numpy(planes), path=path)
+        assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    for i in range(2):
+        solo = np.asarray(jck.significant_bit_widths(jnp.asarray(planes[i])))
+        assert np.array_equal(solo, want[i])
+        assert np.array_equal(tck.significant_bit_widths(torch.from_numpy(planes[i])).numpy(),
+                              solo)
+    assert want[1, 1, 1] == 0 and want[0, 0, 0] <= 7
+    if np.issubdtype(dtype, np.signedinteger) or dtype == np.float32:
+        assert want[0, 2, 1] == 32  # a negative word in a 4x72 edge tile
+
+
+# float planes outside int32: (dtype, value) per tile of a (16, 384) plane
+SATURATING = [np.nan, np.inf, -np.inf, 3.0e9, -3.0e9, 2.0**31, -(2.0**31), 1.0e20,
+              2147483520.0, 1.9999999999]
+
+
+@pytest.mark.parametrize("dtype", [np.float16, np.float32, np.float64])
+def test_significant_bit_widths_saturate_as_the_reference(dtype):
+    """K5's and K5b's cast of a float plane equals the reference's
+    astype(jnp.int32) where PyTorch's own float-to-int conversion does
+    not: NaN reads as 0, values past the int32 range (infinities
+    included) as its ends, and a float64 plane is taken as float32 first,
+    as JAX takes it (1.9999999999 reads 2); one value a tile."""
+    planes = np.zeros((2, 16, 640), dtype)
+    with np.errstate(over="ignore"):  # float16 overflows the large values to +-inf
+        for k, v in enumerate(SATURATING):
+            planes[0, 8 * (k // 5):8 * (k // 5) + 8, 128 * (k % 5) + 3] = v
+    planes[1] = -planes[0]
+    want = np.asarray(jck.significant_bit_widths_batched(jnp.asarray(planes)))
+    for path in ("grid", "vmap"):
+        got = tck.significant_bit_widths_batched(torch.from_numpy(planes), path=path)
+        assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    for i in range(2):
+        got = tck.significant_bit_widths(torch.from_numpy(planes[i]))
+        assert np.array_equal(got.numpy(), want[i])
+    assert want[0, 0, 0] == 0 and want[0, 0, 1] == 31 and want[0, 0, 2] == 32
+    if dtype == np.float64:
+        assert want[0, 1, 4] == 2
+
+
+def _widths_pair(bh, bw, seed, b=None):
+    """(frame, ref) of (2 bh + 1, 2 bw + 2): 3x3 tiles, the last row and
+    column of tiles ragged.  Noise of 2 mm everywhere; tile (0, 0)
+    differs only by -0.0 against +0.0; tile (0, 1) moves by 5 cm but
+    holds a NaN; tile (1, 0) has a pixel whose sign flips (an XOR word
+    with the sign bit: width 32); tile (1, 1) moves by 5 cm."""
+    rng = np.random.default_rng(seed)
+    shape = (2 * bh + 1, 2 * bw + 2) if b is None else (b, 2 * bh + 1, 2 * bw + 2)
+    ref = rng.normal(0.5, 0.1, shape).astype(np.float32)
+    frame = ref + rng.normal(0.0, 0.002, shape).astype(np.float32)
+    frame[..., :bh, :bw] = ref[..., :bh, :bw]
+    ref[..., 0, 0], frame[..., 0, 0] = 0.0, -0.0
+    frame[..., :bh, bw:2 * bw] += np.float32(0.05)
+    frame[..., 1, bw + 1] = np.nan
+    frame[..., bh, 0] = -ref[..., bh, 0]
+    frame[..., bh:2 * bh, bw:2 * bw] += np.float32(0.05)
+    return frame, ref
+
+
+@pytest.mark.parametrize("threshold", [0.0, 0.01])
+@pytest.mark.parametrize("block", [(8, 128), (32, 64), (9, 130)])
+def test_delta_encode_widths_matches_reference(block, threshold):
+    """K3's and K3b's launch with the widths, on its plain path, equals the
+    Pallas delta_encode then significant_bit_widths (and the batched pair)
+    bit for bit: delta, mask and widths, ragged edge tiles included, and
+    so does the entropy stage's ``wire.entropy_residuals``.  The
+    signed-zero and the NaN tile are unchanged, so their width is 0 where
+    their XOR is not; the sign-flip tile reads 32."""
+    bh, bw = block
+    tile = dict(threshold=threshold, block_h=bh, block_w=bw)
+    frame, ref_plane = _widths_pair(bh, bw, seed=bh + bw)
+    jd, jm = jck.delta_encode(jnp.asarray(frame), jnp.asarray(ref_plane), **tile)
+    jw = jck.significant_bit_widths(jd, block_h=bh, block_w=bw)
+    d, m, w = tck._delta_encode_widths(torch.from_numpy(frame), torch.from_numpy(ref_plane),
+                                       **tile)
+    staged = twire.entropy_residuals(torch.from_numpy(frame), torch.from_numpy(ref_plane),
+                                     **tile)
+    assert all(torch.equal(a, b) for a, b in zip(staged, (d, m, w)))
+    assert d.dtype == torch.int32 and w.dtype == torch.int32 and w.shape == (3, 3)
+    assert np.array_equal(d.numpy(), np.asarray(jd))
+    assert np.array_equal(_bits(m.numpy()), _bits(jm))
+    assert np.array_equal(w.numpy(), np.asarray(jw))
+    assert w[0, 0] == 0 and w[0, 1] == 0 and w[1, 0] == 32 and m[1, 1] == 1
+    xor = frame.view(np.int32) ^ ref_plane.view(np.int32)
+    assert xor[:bh, :bw].any() and xor[:bh, bw:2 * bw].any()  # unchanged, not equal
+
+    frames, refs = _widths_pair(bh, bw, seed=bh * bw, b=3)
+    jd, jm = jck.delta_encode_batched(jnp.asarray(frames), jnp.asarray(refs), **tile)
+    jw = jck.significant_bit_widths_batched(jd, block_h=bh, block_w=bw)
+    d, m, w = twire.entropy_residuals(torch.from_numpy(frames), torch.from_numpy(refs), **tile)
+    assert np.array_equal(d.numpy(), np.asarray(jd))
+    assert np.array_equal(_bits(m.numpy()), _bits(jm))
+    assert np.array_equal(w.numpy(), np.asarray(jw))
+    for i in range(3):
+        di, mi, wi = tck._delta_encode_widths(torch.from_numpy(frames[i]),
+                                              torch.from_numpy(refs[i]), **tile)
+        assert torch.equal(di, d[i]) and torch.equal(mi, m[i]) and torch.equal(wi, w[i])
+
+
+@pytest.mark.parametrize("lo,hi", RANGES)
+@pytest.mark.parametrize("bits", tcr.PACKABLE_BITS)
+def test_quantize_pack_recon_matches_reference_oracle(bits, lo, hi):
+    """K6's keyframe launch, on its plain path, equals the jnp oracle's
+    quantize_pack then unpack_dequantize: the words, and the
+    reconstruction's bits, with ties, NaN, +-inf and -0.0 in the plane;
+    the quantized uplink's ``wire.encode_keyframe`` gives the same."""
+    for kind in ("ties", "specials"):
+        x = _plane(kind, lo, hi, bits, seed=13)
+        words = jcr.quantize_pack(jnp.asarray(x), lo, hi, bits=bits)
+        back = jcr.unpack_dequantize(words, lo, hi, bits=bits)
+        got_words, got_back = tck._quantize_pack_recon(torch.from_numpy(x), lo, hi, bits=bits)
+        assert np.array_equal(got_words.numpy(), np.asarray(words))
+        assert got_back.dtype == torch.float32 and got_back.shape == (H, W)
+        assert np.array_equal(_bits(got_back.numpy()), _bits(back))
+        key_words, key_back = twire.encode_keyframe(torch.from_numpy(x), lo, hi, bits=bits)
+        assert torch.equal(key_words, got_words) and torch.equal(key_back, got_back)
