@@ -95,11 +95,23 @@ Phases (any failure exits non-zero and prints no result line):
      device activities per quantized closed-loop delta frame, old path
      against new; K4 against torch.bitwise_xor at 128x128, 240x320 and
      480x640;
- 15. one {"kernels": [...]} line with all twelve kernels and the seven
-     one-launch paths, then the {"ok": ...} line last.
+ 15. the paper's offload path: ``measure_wrapper`` on the card (pinned
+     host <-> card round trips) beside ``paper_wrapper``'s constants;
+     the 12 deployments of ``repro_torch.examples.edge_offload_serve``
+     (Fig. 4 local runs, Fig. 5 networks x Forced/Auto x Single/Multi-
+     Step) through ``runtime.executed_run`` at ``PAPER_TRACKER_CFG``
+     (Camera() 128x128, 64 x 30) on a 36-frame clip with the example's
+     fast burst: the simulated fps and drop rate (the cost model's, for
+     the paper's tiers), the mean position error (< 3 cm on the local
+     server runs), processed frames equal to ``analytic_run``'s replay,
+     the card's wall time a processed frame by CUDA events, K1 31 and K2
+     30 launches a processed frame; the paper's orderings;
+ 16. one {"kernels": [...]} line with all twelve kernels and the seven
+     one-launch paths (K1's and K2's launches counted over the tracker
+     and the offload grid), then the {"ok": ...} line last.
 
 Each path (the tracker, the uplink, the quantized uplink with its
-entropy stage, the batched step) runs with the launch counts set to 0
+entropy stage, the batched step, the offload grid) runs with the launch counts set to 0
 just before it and read just after; a kernel of the path that was not
 launched fails the run.
 
@@ -160,10 +172,12 @@ def phase_card(torch):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"CUDA {torch.version.cuda}  device {torch.cuda.get_device_name(0)} "
         f"(count {torch.cuda.device_count()})")
+    return card
 
 
 def phase_build(_build):
@@ -1702,6 +1716,94 @@ def phase_fused_timing(torch, ck, cref, wire, frames, step_inputs, device, lo, h
     return out
 
 
+# ---------------------------------------------------------------------------
+# The paper's offload path: the container tax measured on the card, and the
+# 12 deployments of examples/edge_offload_serve executed at full width.
+
+# The example's clip length.  If the script ever outgrows its time limit,
+# cut this first (and say so in the log).
+GRID_FRAMES = 36
+
+
+def phase_offload(torch, rs, pu, device, card):
+    """``measure_wrapper`` on the card beside ``paper_wrapper``; then the
+    12 deployments through ``runtime.executed_run`` at
+    ``hardware.PAPER_TRACKER_CFG`` on a ``Camera()`` clip with the
+    example's fast burst, the clock charged with ``paper_staged()``.
+    Each deployment processes the frames ``analytic_run`` replays for the
+    same plan and seed, and launches K1 31 and K2 30 times a processed
+    frame; the local server runs track to < 3 cm; the paper's orderings
+    hold.  Returns the grid's K1 and K2 launches."""
+    from repro_torch.core import wrapper
+    from repro_torch.data import rgbd
+    from repro_torch.examples import edge_offload_serve as serve
+    from repro_torch.sim import hardware, runtime
+
+    fit, paper = wrapper.measure_wrapper(device=device), wrapper.paper_wrapper()
+    log(f"[offload] container tax measured on {card} (pinned host <-> card round trips, "
+        f"1 KiB and 4 MiB, min of 5): call_overhead {fit.call_overhead * 1e6:.2f} us, "
+        f"staging bandwidth {fit.serialization_bandwidth / 1e9:.3f} GB/s; paper_wrapper() "
+        f"(the paper's JNI/JVM container, modelled): call_overhead "
+        f"{paper.call_overhead * 1e6:.2f} us, serialization {paper.serialization_bandwidth / 1e6:.1f}"
+        f" MB/s, JNI {paper.jni_bandwidth / 1e6:.1f} MB/s")
+    for value in (fit.call_overhead, fit.serialization_bandwidth):
+        check(value == value and 0 < value < float("inf"),
+              f"measure_wrapper on the card gave {fit}")
+
+    cfg, comp = hardware.PAPER_TRACKER_CFG, hardware.paper_staged()
+    # the tracker's camera, Camera() 128x128
+    seq = rgbd.SequenceConfig(num_frames=GRID_FRAMES, camera=cfg.camera, fast_burst=(18, 26))
+    frames, truth = rgbd.render_sequence(seq, device=device)
+    per_frame = (1 + cfg.pso.num_generations, cfg.pso.num_generations)
+    log(f"[offload] the paper's 12 deployments executed on {card}: camera "
+        f"{cfg.camera.width}x{cfg.camera.height}, {cfg.pso.num_particles} particles x "
+        f"{cfg.pso.num_generations} generations, {GRID_FRAMES} frames (fast burst 18-26); fps "
+        f"and drop rate are the cost model's prediction for the paper's modelled tiers, not "
+        f"this card's speed; error and wall time are this card's")
+    torch.cuda.synchronize()
+    rs.launches = 0
+    pu.launches = pu.launches_projected = 0
+    processed_total = 0
+    for name, env, policy, gran in serve.deployments():
+        k1, k2 = rs.launches, pu.launches
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = runtime.executed_run(cfg, env, policy, frames, truth, gran, seed=0,
+                                   timing_comp=comp, device=device)
+        end.record()
+        end.synchronize()
+        k1, k2 = rs.launches - k1, pu.launches - k2
+        processed = [e.index for e in res.sim.stats.processed]
+        replay = runtime.analytic_run(comp, env, policy, gran, GRID_FRAMES, seed=0)
+        n = len(processed)
+        processed_total += n
+        log(f"[offload] {name:44s} simulated {res.sim.fps:6.2f} fps, drop rate "
+            f"{res.sim.stats.drop_rate:.3f}; processed {n:2d}; mean position error "
+            f"{res.mean_pos_error * 100:.3f} cm (lost {res.track_lost_frames}); wall "
+            f"{start.elapsed_time(end) / max(n, 1):.3f} ms a processed frame by CUDA events; "
+            f"K1 {k1}, K2 {k2}")
+        check(processed == [e.index for e in replay.stats.processed],
+              f"{name}: processed frames {processed} differ from analytic_run's replay")
+        check((k1, k2) == (per_frame[0] * n, per_frame[1] * n),
+              f"{name}: K1 {k1} and K2 {k2} launches for {n} processed frames, expected "
+              f"{per_frame[0]} and {per_frame[1]} a frame")
+        check(res.mean_pos_error == res.mean_pos_error, f"{name}: no position error")
+        if name.startswith("local/server/"):
+            check(res.mean_pos_error < 0.03,
+                  f"{name}: mean position error {res.mean_pos_error:.4f} m >= 3 cm")
+    check(pu.launches_projected == pu.launches,
+          "the grid's K2 launches did not fuse the quaternion projection")
+    claims = serve.paper_claims()
+    log(f"[offload] the paper's orderings (cost model, 200 frames): "
+        f"{sum(claims.values())} of {len(claims)} hold")
+    check(all(claims.values()), f"paper orderings that fail: "
+          f"{[k for k, ok in claims.items() if not ok]}")
+    log(f"[offload] launches over the grid: K1 {rs.launches}, K2 {pu.launches} for "
+        f"{processed_total} processed frames")
+    return {"k1": rs.launches, "k2": pu.launches}
+
+
 SLICE3_KERNELS = [
     # key, name, replaces (all in src/repro_torch/csrc/quant_codec.cu)
     ("k5", "significant_bit_widths", "src/repro/codec/kernels.py:229"),
@@ -1776,7 +1878,7 @@ def main() -> int:
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    phase_card(torch)
+    card = phase_card(torch)
     phase_build(_build)
 
     seq, cfg = configs()
@@ -1878,6 +1980,10 @@ def main() -> int:
     timing.update(phase_fused_timing(torch, ck, cref, wire, frames, step_inputs, device, lo,
                                      hi))
     timing["k4"]["sizes"] = timing.pop("k4_sizes")
+    grid = phase_offload(torch, rs, pu, device, card)
+    for row, key in zip(kernels, ("k1", "k2")):
+        row["launches_by_path"] = {"tracker": row["launches"], "offload_grid": grid[key]}
+        row["launches"] += grid[key]
     rows = (SLICE2_KERNELS
             + [(key, name, "src/repro_torch/csrc/quant_codec.cu", replaces)
                for key, name, replaces in SLICE3_KERNELS]

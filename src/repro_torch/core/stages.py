@@ -3,11 +3,11 @@
 The paper's Fig. 2: the per-frame hand-tracking optimization consists of
 four discrete steps that can be exposed to the offloading framework either
 individually ("Multi-Step") or fused ("Single-Step"). This module gives
-that structure a first-class representation a placement engine (the
-reference's ``repro.core.offload``, not yet ported) can reason about:
-each stage declares its FLOPs and the data items it consumes/produces,
-and each data item knows its size, so plan cost (compute +
-serialization + network) is computable analytically.
+that structure a first-class representation the placement engine
+(``core.offload``) can reason about: each stage declares its FLOPs and
+the data items it consumes/produces, and each data item knows its size,
+so plan cost (compute + serialization + network) is computable
+analytically.
 
 The same abstraction describes an LLM ``serve_step`` (embed -> blocks ->
 head) — see the reference's ``repro/serving/edge.py`` — which is how the

@@ -902,3 +902,39 @@ def test_quantize_pack_recon_matches_k6_then_k7(cuda, h, w, lo, hi):
             pw, pr = ck._quantize_pack_recon(plane.cpu(), lo, hi, bits=bits)
             assert torch.equal(words.cpu(), pw) and _bit_equal(recon.cpu(), pr)
             assert recon.shape == (h, w) and recon.data_ptr() != plane.data_ptr()
+
+
+@pytest.mark.gpu
+def test_offload_path_on_the_card_launches_k1_and_k2(cuda):
+    """The offload path on the card: ``measure_wrapper`` fits a finite,
+    positive call overhead and staging bandwidth from pinned round trips,
+    and one deployment of the paper's grid (the laptop, native: it drops
+    frames) through ``executed_run`` at a small size processes the frames
+    ``analytic_run`` replays for the same plan and seed, launching K1 31
+    and K2 30 times (with the projection fused) a processed frame."""
+    from repro_torch.core import pso, tracker, wrapper
+    from repro_torch.data import rgbd
+    from repro_torch.examples import edge_offload_serve as serve
+    from repro_torch.sim import hardware, runtime
+
+    fit = wrapper.measure_wrapper(device=cuda)
+    for value in (fit.call_overhead, fit.serialization_bandwidth):
+        assert np.isfinite(value) and value > 0
+    cam = Camera(width=64, height=64, fx=60.0, fy=60.0, cx=31.5, cy=31.5)
+    frames, truth = rgbd.render_sequence(
+        rgbd.SequenceConfig(num_frames=12, camera=cam, fast_burst=(4, 8)), device=cuda)
+    cfg = tracker.TrackerConfig(camera=cam, pso=pso.PSOConfig(num_particles=16,
+                                                              num_generations=30))
+    comp = hardware.paper_staged()
+    name, env, policy, gran = serve.deployments()[2]
+    assert name == "local/laptop/native"
+    rs.launches = 0
+    pu.launches = pu.launches_projected = 0
+    res = runtime.executed_run(cfg, env, policy, frames, truth, gran, timing_comp=comp,
+                               device=cuda)
+    n = len(res.sim.stats.processed)
+    replay = runtime.analytic_run(comp, env, policy, gran, 12, seed=0)
+    assert 0 < n < 12
+    assert [e.index for e in res.sim.stats.processed] == [e.index for e in replay.stats.processed]
+    assert (rs.launches, pu.launches, pu.launches_projected) == (31 * n, 30 * n, 30 * n)
+    assert np.isfinite(res.mean_pos_error)
