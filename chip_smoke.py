@@ -106,7 +106,19 @@ Phases (any failure exits non-zero and prints no result line):
      server runs), processed frames equal to ``analytic_run``'s replay,
      the card's wall time a processed frame by CUDA events, K1 31 and K2
      30 launches a processed frame; the paper's orderings;
- 16. one {"kernels": [...]} line with all twelve kernels and the seven
+ 16. the fleet (``repro_torch.cluster``, host code that launches no
+     kernel: the counts are the same before and after it): the codec
+     golden config's fleet (fleet_star 3 x 2, 6 clients, 40 frames, the
+     sequence's motion) under phase 12's fit from the card, on both
+     engines, equal event for event to each other and to the run under
+     the CPU's fit, each client's final operating point beside the run
+     under the module defaults; the reference's 13 golden configs,
+     restated here (``fleet_golden_configs``), object engine equal to
+     vector engine; a 1-client fleet against a capacity-1 edge for each
+     of phase 15's 12 deployments, its processed frames equal to the
+     ones ``executed_run`` tracked on the card; both engines' events/s
+     at 256 clients x 16 edges x 120 frames on the host CPU;
+ 17. one {"kernels": [...]} line with all twelve kernels and the seven
      one-launch paths (K1's and K2's launches counted over the tracker
      and the offload grid), then the {"ok": ...} line last.
 
@@ -122,6 +134,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -1283,7 +1296,7 @@ def phase_calibration(torch, ck, wire, rate, rgbd):
         f"{cfg.num_frames} frames, noise 0): gain {gain!r}, floor {floor!r}; CPU: "
         f"{cpu_gain!r}, {cpu_floor!r} (relative gap {rel:.3g}); {card.numel()} densities "
         f"equal, mean {float(card.mean()):.4f}")
-    return gain, floor
+    return (gain, floor), (cpu_gain, cpu_floor)
 
 
 def _bound(ops, nbytes):
@@ -1733,7 +1746,8 @@ def phase_offload(torch, rs, pu, device, card):
     Each deployment processes the frames ``analytic_run`` replays for the
     same plan and seed, and launches K1 31 and K2 30 times a processed
     frame; the local server runs track to < 3 cm; the paper's orderings
-    hold.  Returns the grid's K1 and K2 launches."""
+    hold.  Returns the grid's K1 and K2 launches and each deployment's
+    processed frame indices."""
     from repro_torch.core import wrapper
     from repro_torch.data import rgbd
     from repro_torch.examples import edge_offload_serve as serve
@@ -1763,7 +1777,7 @@ def phase_offload(torch, rs, pu, device, card):
     torch.cuda.synchronize()
     rs.launches = 0
     pu.launches = pu.launches_projected = 0
-    processed_total = 0
+    processed_total, tracked = 0, {}
     for name, env, policy, gran in serve.deployments():
         k1, k2 = rs.launches, pu.launches
         start = torch.cuda.Event(enable_timing=True)
@@ -1778,6 +1792,7 @@ def phase_offload(torch, rs, pu, device, card):
         replay = runtime.analytic_run(comp, env, policy, gran, GRID_FRAMES, seed=0)
         n = len(processed)
         processed_total += n
+        tracked[name] = processed
         log(f"[offload] {name:44s} simulated {res.sim.fps:6.2f} fps, drop rate "
             f"{res.sim.stats.drop_rate:.3f}; processed {n:2d}; mean position error "
             f"{res.mean_pos_error * 100:.3f} cm (lost {res.track_lost_frames}); wall "
@@ -1801,7 +1816,233 @@ def phase_offload(torch, rs, pu, device, card):
           f"{[k for k, ok in claims.items() if not ok]}")
     log(f"[offload] launches over the grid: K1 {rs.launches}, K2 {pu.launches} for "
         f"{processed_total} processed frames")
-    return {"k1": rs.launches, "k2": pu.launches}
+    return {"k1": rs.launches, "k2": pu.launches, "processed": tracked}
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the fleet (``repro_torch.cluster``).  Host code, as in the
+# reference: both engines, the card's density calibration in the rate
+# controller, the one-client limit against the frames the card tracked.
+
+# BENCH_fleet_events.json's smoke shape: clients, edges (capacity 8), frames
+FLEET_EVENTS_SHAPE = (256, 16, 120)
+FLEET_EVENTS_REPS = 3  # best of, as the reference's benchmark
+# the reference's gate_min_speedup, a CPU record of an earlier machine:
+# printed beside this host's ratio, not checked
+FLEET_EVENTS_GATE = 2.0
+
+
+def fleet_golden_configs():
+    """The 13 golden configs of the reference's engine-equivalence tests
+    (``tests/test_engine_equivalence.py::_golden_configs``), restated on
+    the port; ``tests/test_torch_fleet.py`` holds the two equal."""
+    from repro_torch.cluster import MigrationConfig
+    from repro_torch.cluster.events import AdaptiveWindow
+    from repro_torch.cluster.fleet import LinkDrift, ServiceDrift
+    from repro_torch.codec import rate as crate
+    from repro_torch.core.workloads import workload_suite
+    from repro_torch.net import links
+    from repro_torch.sim import hardware
+
+    comp = hardware.paper_staged()
+    drifts = (
+        LinkDrift(time=0.3, link="5g_edge_0", latency=0.05, jitter=0.01),
+        ServiceDrift(time=0.6, edge="edge_1", factor=2.5),
+        LinkDrift(time=0.9, link="5g_edge_0", latency=0.004, jitter=0.0015),
+    )
+    # a narrow shared cell: every spoke contends for one transmission slot
+    cell_topo = hardware.shared_cell_star(
+        num_edges=3, edge_capacity=2, cell_capacity=1,
+        base_link=dataclasses.replace(links.FIVE_G_EDGE, bandwidth=15e6))
+    topo = hardware.fleet_star(num_edges=3, edge_capacity=2)
+    btopo = hardware.fleet_star(num_edges=3, edge_capacity=2, batching=True)
+    het_topo, het_classes = hardware.hetero_fleet_star(num_edges=3, edge_capacity=2)
+    late_drift = [LinkDrift(time=0.4, link="5g_edge_0", latency=0.06, jitter=0.012)]
+    return {
+        "plain": dict(topo=topo, comp=comp, num_clients=9, num_frames=40),
+        "batching": dict(topo=btopo, comp=comp, num_clients=9, num_frames=40,
+                         gather_window=3e-3),
+        "adaptive": dict(topo=btopo, comp=comp, num_clients=7, num_frames=40,
+                         gather_window=3e-3,
+                         adaptive_window=AdaptiveWindow(alpha=0.3, idle_factor=1.5)),
+        "migration": dict(topo=hardware.hotspot_star(), comp=comp, num_clients=8,
+                          num_frames=45, dispatch="least_queue",
+                          migration=MigrationConfig()),
+        "codec": dict(topo=topo, comp=comp, num_clients=6, num_frames=40,
+                      codec=crate.CodecConfig(base=hardware.codec_point())),
+        "drift": dict(topo=topo, comp=comp, num_clients=8, num_frames=60,
+                      drifts=list(drifts), drift_window=12, drift_min_samples=5),
+        "entropy_codec": dict(topo=topo, comp=comp, num_clients=6, num_frames=40,
+                              codec=crate.CodecConfig(
+                                  base=hardware.codec_point(entropy=True))),
+        "contended": dict(topo=cell_topo, comp=comp, num_clients=8, num_frames=40,
+                          dispatch="latency_weighted",
+                          codec=crate.CodecConfig(
+                              base=hardware.codec_point(entropy=True),
+                              bits_ladder=(16, 8, 4, 2),
+                              cell_threshold=0.1e-3, cell_stagger=0.05)),
+        "keyframe_loss": dict(topo=cell_topo, comp=comp, num_clients=10, num_frames=50,
+                              dispatch="latency_weighted",
+                              codec=crate.CodecConfig(
+                                  base=hardware.codec_point(entropy=True),
+                                  cell_threshold=0.1e-3, resync_bound=4,
+                                  drop_threshold=0.2)),
+        "hetero": dict(topo=het_topo, comp=comp, num_clients=9, num_frames=40,
+                       client_classes=het_classes),
+        "everything": dict(topo=het_topo, comp=comp, num_clients=10, num_frames=50,
+                           dispatch="least_queue", client_classes=het_classes,
+                           batching=True, gather_window=2e-3,
+                           migration=MigrationConfig(),
+                           codec=crate.CodecConfig(base=hardware.codec_point()),
+                           drifts=list(late_drift)),
+        "mixed": dict(topo=topo, comp=comp, num_clients=9, num_frames=40,
+                      granularity="multi_step", workloads=workload_suite()),
+        "mixed_everything": dict(topo=btopo, comp=comp, num_clients=10, num_frames=50,
+                                 dispatch="least_queue", granularity="multi_step",
+                                 workloads=workload_suite(), gather_window=2e-3,
+                                 migration=MigrationConfig(min_dwell_frames=10),
+                                 drifts=list(late_drift)),
+    }
+
+
+def fleet_outcome(res):
+    """A fleet result as plain values, on the fields the reference's
+    engine-equivalence check compares: events and duration; per client
+    its edge, replans, migrations, total wait, rate changes, processed
+    frame events, duration and codec; per edge its load; the shared
+    media; the plan cache's counters; the migration records."""
+    def astuple(x):
+        return None if x is None else dataclasses.astuple(x)
+
+    mig = res.migration
+    return (
+        res.events, res.duration,
+        tuple((c.edge, c.replans, c.migrations, c.total_wait, c.rate_changes,
+               tuple(astuple(e) for e in c.stats.processed), c.stats.duration,
+               astuple(c.codec)) for c in res.clients),
+        tuple(astuple(e) for e in res.edges),
+        tuple(astuple(m) for m in res.links),
+        (res.cache.stats.hits, res.cache.stats.misses, res.cache.stats.invalidations),
+        None if mig is None else (
+            mig.count, mig.considered, mig.rejected_dwell, mig.rejected_threshold,
+            tuple((r.client, r.src, r.dst, r.time) for r in mig.records)),
+    )
+
+
+def _host_cpu():
+    """The host CPU as /proc/cpuinfo names it: model name, vendor, family
+    and model number (some hosts give the name as "unknown"), and the
+    logical CPUs this process sees."""
+    fields = {}
+    for line in pathlib.Path("/proc/cpuinfo").read_text().splitlines():
+        key, _, value = line.partition(":")
+        fields.setdefault(key.strip(), value.strip())
+    keys = ("model name", "vendor_id", "cpu family", "model")
+    return (", ".join(f"{k} {fields[k]}" for k in keys if k in fields)
+            + f"; {len(os.sched_getaffinity(0))} logical CPUs")
+
+
+def phase_fleet(fit, cpu_fit, executed, card):
+    """The fleet on the port.  ``fit`` is phase 12's (gain, floor) from
+    the card, ``cpu_fit`` the CPU's; ``executed`` maps each deployment of
+    phase 15's grid to the frames ``executed_run`` tracked on the card."""
+    from repro_torch.cluster import PlanCache, capacity_sweep, run_fleet
+    from repro_torch.codec import rate
+    from repro_torch.core.offload import Policy, Topology
+    from repro_torch.examples import edge_offload_serve as serve
+    from repro_torch.sim import hardware
+
+    t_start = time.perf_counter()
+    comp = hardware.paper_staged()
+
+    def both(**kw):
+        """The object engine's result, its outcome, and whether the vector
+        engine's outcome equals it."""
+        res = run_fleet(engine="object", cache=PlanCache(), **kw)
+        vec = run_fleet(engine="vector", cache=PlanCache(), **kw)
+        outcome = fleet_outcome(res)
+        return res, outcome, outcome == fleet_outcome(vec)
+
+    # a. the codec golden config's fleet under the card's calibration
+    topo = hardware.fleet_star(num_edges=3, edge_capacity=2)
+    motion = rate.sequence_motion()
+    fits = {"card": fit, "cpu": cpu_fit,
+            "defaults": (rate.DEFAULT_DENSITY_GAIN, rate.DEFAULT_DENSITY_FLOOR)}
+    runs = {}
+    for label, (gain, floor) in fits.items():
+        codec = rate.CodecConfig(base=hardware.codec_point(), motion=motion,
+                                 density_gain=gain, density_floor=floor)
+        res, outcome, same = both(topo=topo, comp=comp, num_clients=6, num_frames=40,
+                                  codec=codec)
+        check(same, f"fleet under the {label} density fit: object and vector engines differ")
+        runs[label] = outcome
+        points = "; ".join(
+            f"client {c.client}: {c.codec.quant_bits}-bit, keyframe every "
+            f"{c.codec.keyframe_interval}, density {c.codec.change_density}, "
+            f"{c.rate_changes} rate changes" for c in res.clients)
+        log(f"[fleet] codec fleet (fleet_star 3 x 2, 6 clients, 40 frames, sequence "
+            f"motion) under the {label} fit (gain {gain!r}, floor {floor!r}): "
+            f"{res.events} events, object == vector; {points}")
+    fits_equal = ("bit-equal" if fit == cpu_fit
+                  else f"not bit-equal: {fit!r} on the card, {cpu_fit!r} on the CPU")
+    check(runs["card"] == runs["cpu"],
+          f"the fleet under the card's density fit differs from the same run under the "
+          f"CPU's (the fits are {fits_equal})")
+    log(f"[fleet] the card's fit and the CPU's are {fits_equal}; they give the same fleet, "
+        f"event for event, on both engines")
+
+    # b. the golden configs, object engine against vector engine
+    for name, kw in sorted(fleet_golden_configs().items()):
+        res, _, same = both(**kw)
+        check(same and res.events > 0, f"golden config {name}: object and vector engines differ")
+        log(f"[fleet] golden {name:16s} object == vector: {res.events} events, mean fps "
+            f"{res.mean_achieved_fps!r}, drop rate {res.drop_rate!r}, p99 "
+            f"{res.p99_loop_time * 1e3!r} ms")
+
+    # c. the one-client limit against the frames the card tracked
+    for name, env, policy, gran in serve.deployments():
+        star = Topology.star(("client", env.client), [("server", env.server, env.link)],
+                             wrapper=env.wrapper, wrapped=env.wrapped)
+        (point,) = capacity_sweep(star, comp, client_counts=(1,), num_frames=GRID_FRAMES,
+                                  policy=policy, granularity=gran, seed=0)
+        frames = [e.index for e in point.result.clients[0].stats.processed]
+        admitted = point.result.edges[0].admitted
+        check(frames == executed[name],
+              f"{name}: the one-client fleet processed {frames}, executed_run tracked "
+              f"{executed[name]} on the card")
+        # Forced sends every processed frame to the edge, Local none;
+        # Auto sends what its plan chose
+        want = {Policy.FORCED: len(frames), Policy.LOCAL: 0}.get(policy, admitted)
+        check(admitted == want,
+              f"{name}: the capacity-1 edge admitted {admitted} frames, expected {want}")
+        log(f"[fleet] one client, capacity-1 edge, {name:44s} processed {len(frames):2d} "
+            f"frames = executed_run's on {card}; edge admitted {admitted}"
+            + (" (the plan keeps every stage on the client: the edge stays idle and only "
+               "the client's clock is held)" if admitted == 0 else ""))
+
+    # d. engine throughput on this host (host numbers, not the card's)
+    clients, edges, frames = FLEET_EVENTS_SHAPE
+    wide = hardware.fleet_star(num_edges=edges, edge_capacity=8)
+    best, events = {}, {}
+    for engine in ("object", "vector"):
+        best[engine] = float("inf")
+        for _ in range(FLEET_EVENTS_REPS):
+            t0 = time.perf_counter()
+            res = run_fleet(wide, comp, num_clients=clients, num_frames=frames,
+                            policy=Policy.AUTO, cache=PlanCache(), engine=engine)
+            best[engine] = min(best[engine], time.perf_counter() - t0)
+            check(events.setdefault(engine, res.events) == res.events,
+                  f"the {engine} engine's event count varied across reps")
+    check(events["object"] == events["vector"],
+          f"engine event counts differ: {events}")
+    rate_o, rate_v = events["object"] / best["object"], events["vector"] / best["vector"]
+    log(f"[fleet] engine throughput on the host CPU ({_host_cpu()}; host numbers, not the "
+        f"card's), {clients} clients x {edges} edges x {frames} frames, {events['object']} "
+        f"events, best of {FLEET_EVENTS_REPS}: object {rate_o!r} events/s, vector "
+        f"{rate_v!r} events/s, ratio {rate_v / rate_o!r} (the reference's "
+        f"gate_min_speedup {FLEET_EVENTS_GATE}, a CPU record of an earlier machine: not "
+        f"checked)")
+    log(f"[fleet] phase took {time.perf_counter() - t_start:.2f} s")
 
 
 SLICE3_KERNELS = [
@@ -1968,7 +2209,7 @@ def main() -> int:
     phase_encode_masks(torch, ck, cref, wire, encoded, lo, hi)
     merge(phase_fused_shapes(torch, ck, cref, wire, device, lo, hi))
     merge(phase_quant_kernels(torch, ck, cref, frames, device))
-    phase_calibration(torch, ck, wire, rate, rgbd)
+    fit, cpu_fit = phase_calibration(torch, ck, wire, rate, rgbd)
 
     step_launches, step_inputs, step_errs = phase_batched_step(
         torch, hm, tracker_mod, ops_mod, rs, pu, ck, wire, decoded, truth, device, lo, hi)
@@ -1981,6 +2222,13 @@ def main() -> int:
                                      hi))
     timing["k4"]["sizes"] = timing.pop("k4_sizes")
     grid = phase_offload(torch, rs, pu, device, card)
+    def counts():
+        return (rs.launches, rs.launches_batched, pu.launches, pu.launches_batched,
+                dict(ck.launches))
+
+    before = counts()
+    phase_fleet(fit, cpu_fit, grid["processed"], card)
+    check(counts() == before, "the fleet phase launched a kernel: it is host code")
     for row, key in zip(kernels, ("k1", "k2")):
         row["launches_by_path"] = {"tracker": row["launches"], "offload_grid": grid[key]}
         row["launches"] += grid[key]

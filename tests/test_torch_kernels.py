@@ -938,3 +938,42 @@ def test_offload_path_on_the_card_launches_k1_and_k2(cuda):
     assert [e.index for e in res.sim.stats.processed] == [e.index for e in replay.stats.processed]
     assert (rs.launches, pu.launches, pu.launches_projected) == (31 * n, 30 * n, 30 * n)
     assert np.isfinite(res.mean_pos_error)
+
+
+def _fleet_view(res):
+    """A fleet result's events, per-client frames, waits and codec
+    points, and per-edge loads, comparable with ``==`` across the two
+    engines of the port."""
+    return (res.events, res.duration,
+            [(c.edge, c.total_wait, c.rate_changes, list(c.stats.processed), c.codec)
+             for c in res.clients],
+            res.edges, res.links)
+
+
+@pytest.mark.gpu
+def test_fleet_under_the_cards_density_calibration(cuda):
+    """The rate controller's motion -> density fit calibrated on the card
+    (one mask-only K3b launch) arms the ``codec`` golden config's fleet
+    (fleet_star 3 x 2, 6 clients, 40 frames, the sequence's motion): both
+    engines agree event for event, and with the same fleet under the
+    CPU's fit."""
+    from repro_torch.cluster import PlanCache, run_fleet
+    from repro_torch.codec import rate
+    from repro_torch.sim import hardware
+
+    before = dict(ck.launches)
+    fit = rate.calibrate_density_map(device=cuda)
+    assert ck.launches["delta_encode_batched"] - before["delta_encode_batched"] == 1
+    assert ck.launches["delta_encode_mask_only"] - before["delta_encode_mask_only"] == 1
+    cpu_fit = rate.calibrate_density_map(device="cpu")
+    topo, comp = hardware.fleet_star(num_edges=3, edge_capacity=2), hardware.paper_staged()
+    views = []
+    for gain, floor in (fit, cpu_fit):
+        codec = rate.CodecConfig(base=hardware.codec_point(), motion=rate.sequence_motion(),
+                                 density_gain=gain, density_floor=floor)
+        for engine in ("object", "vector"):
+            views.append(_fleet_view(run_fleet(topo, comp, num_clients=6, num_frames=40,
+                                               codec=codec, engine=engine,
+                                               cache=PlanCache())))
+    assert views[0][0] > 0 and all(c[4] is not None for c in views[0][2])
+    assert all(v == views[0] for v in views[1:])
