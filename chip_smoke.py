@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the hand tracker on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of the hand tracker, and of its LLM-decode
+analogue, on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -118,7 +119,24 @@ Phases (any failure exits non-zero and prints no result line):
      of phase 15's 12 deployments, its processed frames equal to the
      ones ``executed_run`` tracked on the card; both engines' events/s
      at 256 clients x 16 edges x 120 frames on the host CPU;
- 17. one {"kernels": [...]} line with all twelve kernels and the seven
+ 17. the LLM analogue's serving path (``repro_torch.models``,
+     ``serving``, ``launch.serve``; torch.matmul/einsum, no kernel of the
+     port: the counts are the same before and after it), float32 with
+     TF32 off where results are compared: every reduced arch's forward,
+     prefill and 10 decode steps on the card against the port's CPU run
+     on the same parameters (drawn on the CPU, copied to the card),
+     within LLM_TOL; the example's 8 requests on gemma-2b reduced through
+     ``Engine`` (tokens equal to the CPU's) and ``ContinuousEngine`` (4
+     slots, the same tokens); gemma-2b at full width in bfloat16 through
+     ``launch.serve.run(device="cuda")`` at the reference's defaults
+     (8 requests, 32-token prompts, 32 new tokens), its parameter count
+     and peak memory, then the same run timed by CUDA events (prefill,
+     decode a step, tok/s; every logit finite, every token in the
+     vocabulary); and the same parameters in float32: prefill on 16
+     tokens + 16 decode steps against the forward over 32, within
+     LLM_FULL_DECODE_BOUND, with the bfloat16 run's first-token
+     agreement printed;
+ 18. one {"kernels": [...]} line with all twelve kernels and the seven
      one-launch paths (K1's and K2's launches counted over the tracker
      and the offload grid), then the {"ok": ...} line last.
 
@@ -2045,6 +2063,230 @@ def phase_fleet(fit, cpu_fit, executed, card):
     log(f"[fleet] phase took {time.perf_counter() - t_start:.2f} s")
 
 
+LLM_TOL = 1e-4  # reduced archs, float32 with TF32 off: the card against the port's CPU
+LLM_STEPS = 10  # decode steps after a 10-token prefill, 20 tokens in all
+LLM_FULL_ARCH = "gemma-2b"
+# full width, float32: prefill on 16 tokens + 16 decode steps against the
+# forward over all 32, at every position.  The reference holds its 2-layer
+# reduced configs to 5e-5 (tests/test_decode_consistency.py); 18 layers of
+# d_model 2,048 and a 16,384-wide MLP accumulate more rounding.
+LLM_FULL_DECODE_BOUND = 2e-4
+
+
+def _llm_inputs(torch, cfg, device, batch=2, seq=2 * LLM_STEPS):
+    """(forward batch, prefill kwargs, decode positions per step) for one
+    reduced arch, built as tests/test_decode_consistency.py builds them."""
+    import numpy as np
+
+    from repro_torch.models import multimodal
+
+    half = seq // 2
+    tokens = torch.as_tensor(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32),
+        device=device)
+    if cfg.mrope:
+        f = cfg.frontend_tokens
+        fe = multimodal.fake_frontend_embeds(cfg, batch, device=device)
+        pos = multimodal.mrope_positions(batch, seq, image_grid=(4, 4), device=device)
+        return ({"tokens": tokens, "positions": pos, "frontend_embeds": fe},
+                {"positions": pos[:, :, : f + half], "frontend_embeds": fe},
+                [pos[:, :, f + t: f + t + 1] for t in range(half, seq)])
+    if cfg.encoder_layers:
+        enc = multimodal.fake_frontend_embeds(cfg, batch, device=device)
+        return ({"tokens": tokens, "encoder_tokens": enc}, {"encoder_tokens": enc},
+                [None] * (seq - half))
+    return {"tokens": tokens}, {}, [None] * (seq - half)
+
+
+def _llm_logits(torch, transformer, cfg, params, device):
+    """forward, prefill and each decode step's logits, on the host."""
+    batch, pkw, dpos = _llm_inputs(torch, cfg, device)
+    half = batch["tokens"].shape[1] // 2
+    with torch.no_grad():
+        logits, _ = transformer.forward(cfg, params, batch)
+        max_len = logits.shape[1] + 4
+        lp, cache = transformer.prefill(cfg, params, batch["tokens"][:, :half], max_len, **pkw)
+        out = {"forward": logits.cpu(), "prefill": lp.cpu()}
+        for i, pos in enumerate(dpos):
+            t = half + i
+            ld, cache = transformer.decode_step(cfg, params, cache,
+                                                batch["tokens"][:, t: t + 1], positions=pos)
+            out[f"decode {i}"] = ld.cpu()
+    return out
+
+
+def _top2_gap(torch, logits):
+    """The smallest gap between the two largest logits of any row."""
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return float((top[..., 0] - top[..., 1]).min())
+
+
+def phase_llm(torch, card):
+    """The LLM analogue's serving path on the port (slice 6).  a: every
+    reduced arch on the card against the port's CPU run, and the engines'
+    greedy tokens; b: gemma-2b at full width in bfloat16 through
+    ``launch.serve.run``, then timed by CUDA events; c: the full-width
+    decode against the forward in float32."""
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.serving.engine import Engine, Request
+
+    t_start = time.perf_counter()
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 must stay off where the card's results are compared")
+
+    # a. reduced parity: parameters drawn once on the CPU and copied to the card
+    worst = 0.0
+    for arch in registry.list_archs():
+        cfg = registry.get(arch).reduced()
+        params = transformer.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        on_card = transformer.tree_map(lambda t: t.to(device), params)
+        got = _llm_logits(torch, transformer, cfg, on_card, device)
+        want = _llm_logits(torch, transformer, cfg, params, "cpu")
+        errs = {k: float((got[k] - want[k]).abs().max()) for k in want}
+        finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+        err = max(errs.values())
+        worst = max(worst, err)
+        check(finite and err < LLM_TOL,
+              f"{cfg.name}: the card's logits differ from the CPU's by {err!r} (bound "
+              f"{LLM_TOL}), finite {finite}: {errs}")
+        log(f"[llm] {cfg.name:30s} on {card} vs the CPU, float32, TF32 off: forward "
+            f"{tuple(got['forward'].shape)} max |err| {errs['forward']:.3e}, prefill "
+            f"{errs['prefill']:.3e}, {LLM_STEPS} decode steps "
+            f"{max(v for k, v in errs.items() if k.startswith('decode')):.3e} (bound {LLM_TOL})")
+
+    cfg = registry.get(LLM_FULL_ARCH).reduced()
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    on_card = transformer.tree_map(lambda t: t.to(device), params)
+    rng = np.random.default_rng(0)
+    requests = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, 16).astype(np.int32),
+                        max_new_tokens=24) for i in range(8)]
+    want = Engine(cfg, params, max_len=64).generate(requests)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = Engine(cfg, on_card, max_len=64).generate(requests)
+    dt = time.perf_counter() - t0
+    cont = ContinuousEngine(cfg, on_card, num_slots=4, max_len=64)
+    for r in requests:
+        cont.submit(r)
+    streamed = cont.run_to_completion()
+    for g, w, c in zip(got, want, streamed):
+        check(np.array_equal(g.tokens, w.tokens),
+              f"{cfg.name}: request {g.uid}'s tokens on the card {g.tokens.tolist()} differ "
+              f"from the CPU's {w.tokens.tolist()}")
+        check(np.array_equal(c.tokens, g.tokens),
+              f"{cfg.name}: request {g.uid}'s tokens from ContinuousEngine "
+              f"{c.tokens.tolist()} differ from Engine's {g.tokens.tolist()}")
+    total = sum(len(c.tokens) for c in got)
+    log(f"[llm] {cfg.name}: Engine served the example's 8 requests (16-token prompts, 24 new "
+        f"tokens) on {card}: {total} tokens equal to the CPU's, and ContinuousEngine (4 slots) "
+        f"gives each request the same tokens; {total / dt:.1f} tok/s on {card} (host clock, "
+        f"eager, a 2-layer model: launch-bound)")
+
+    # b. full width through the normal entry point
+    cfg = registry.get(LLM_FULL_ARCH)
+    shapes = transformer.param_shapes(cfg)
+    n_params = sum(leaf.numel() for _, leaf in transformer.tree_leaves(shapes))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = serve.run(LLM_FULL_ARCH, reduced=False, device="cuda")
+    peak = torch.cuda.max_memory_allocated()
+    check(sorted(out) == ["arch", "new_tokens", "requests", "sample", "seconds",
+                          "tokens_per_second"]
+          and out["arch"] == cfg.name and out["requests"] == 8 and out["new_tokens"] == 8 * 32
+          and all(0 <= t < cfg.vocab_size for t in out["sample"]),
+          f"serve.run at full width returned {out}")
+    log(f"[llm] {cfg.name} at full width ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV head, head_dim "
+        f"{cfg.resolved_head_dim}, {cfg.mlp} d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied "
+        f"embeddings, {cfg.dtype}) through launch.serve.run(device='cuda') on {card}: "
+        f"{n_params} parameters in the port's tree (cfg.param_count() {cfg.param_count()}), "
+        f"peak memory allocated {peak / 2**30:.3f} GiB; 8 requests x 32-token prompts x 32 new "
+        f"tokens = {out['new_tokens']} tokens in {out['seconds']:.3f} s, "
+        f"{out['tokens_per_second']:.1f} tok/s (host clock, first call); sample "
+        f"{out['sample']}")
+
+    # the same run again (same seed, same parameters), timed by CUDA events
+    params = transformer.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                                     device=device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=32).astype(np.int32) for _ in range(8)]
+    engine = Engine(cfg, params, max_len=32 + 32 + 8)
+    tokens = torch.as_tensor(np.stack(prompts), device=device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(33)]
+    with torch.no_grad():
+        ev[0].record()
+        logits, cache = engine._prefill(engine.params, tokens)
+        ev[1].record()
+        cur = engine._sample(logits)
+        steps, generated = [logits], [cur]
+        for i in range(31):
+            step, cache = engine._decode(engine.params, cache, cur[:, None])
+            ev[i + 2].record()
+            cur = engine._sample(step[:, 0])
+            steps.append(step[:, 0])
+            generated.append(cur)
+    torch.cuda.synchronize()
+    first_logits = logits
+    finite = all(bool(torch.isfinite(x).all()) for x in steps)
+    gap = min(_top2_gap(torch, x) for x in steps)
+    del steps
+    gen = torch.stack(generated, dim=1).cpu().numpy()
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    step_ms = [ev[j].elapsed_time(ev[j + 1]) for j in range(1, 32)]
+    check(finite, f"{cfg.name} at full width: a logit is not finite")
+    check(((gen >= 0) & (gen < cfg.vocab_size)).all(),
+          f"{cfg.name} at full width: a token outside the vocabulary")
+    check(gen[0, :16].tolist() == out["sample"],
+          f"{cfg.name} at full width: the timed run's tokens {gen[0, :16].tolist()} differ from "
+          f"serve.run's {out['sample']} for the same seed")
+    decode_ms = statistics.mean(step_ms)
+    total_ms = prefill_ms + sum(step_ms)
+    log(f"[llm] {cfg.name} at full width on {card}, timed by CUDA events (the same seed and "
+        f"tokens as serve.run): prefill of 8 x 32 tokens {prefill_ms:.3f} ms; decode "
+        f"{decode_ms:.3f} ms a step (median {statistics.median(step_ms):.3f}, min "
+        f"{min(step_ms):.3f}, max {max(step_ms):.3f} over 31 steps of 8 tokens); "
+        f"{8 * 32 / (total_ms / 1e3):.1f} tok/s over prefill + decode; every logit finite, every "
+        f"token in the vocabulary; smallest top-2 logit gap {gap:.3e}")
+
+    # c. full-width decode against the forward, in float32
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = transformer.tree_map(lambda t: t.float(), params)
+    del params, engine, cache, logits, step
+    seq, half = 32, 16
+    with torch.no_grad():
+        full, _ = transformer.forward(cfg32, params32, {"tokens": tokens})
+        lp, cache = transformer.prefill(cfg32, params32, tokens[:, :half], max_len=seq + 8)
+        errs = [float((lp - full[:, half - 1]).abs().max())]
+        for t in range(half, seq):
+            ld, cache = transformer.decode_step(cfg32, params32, cache, tokens[:, t: t + 1])
+            errs.append(float((ld[:, 0] - full[:, t]).abs().max()))
+    scale = float(full.abs().max())
+    agree = int((first_logits.float().argmax(-1) == full[:, -1].argmax(-1)).sum())
+    del params32, full, cache, lp, ld
+    torch.cuda.empty_cache()
+    err = max(errs)
+    check(err < LLM_FULL_DECODE_BOUND,
+          f"{cfg.name} at full width, float32: prefill + decode differ from the forward by "
+          f"{err!r} (bound {LLM_FULL_DECODE_BOUND}); per position {errs}")
+    log(f"[llm] {cfg.name} at full width in float32 on {card} (TF32 off): prefill on 16 "
+        f"tokens + 16 decode steps against the forward over all 32, 8 sequences: max |err| "
+        f"{err!r} (bound {LLM_FULL_DECODE_BOUND}; largest |logit| {scale:.3f}); the bfloat16 "
+        f"run's first token equals the float32 forward's argmax on {agree} of 8 requests "
+        f"(printed, not checked)")
+    log(f"[llm] phase took {time.perf_counter() - t_start:.2f} s; worst reduced error "
+        f"{worst:.3e}")
+
+
 SLICE3_KERNELS = [
     # key, name, replaces (all in src/repro_torch/csrc/quant_codec.cu)
     ("k5", "significant_bit_widths", "src/repro/codec/kernels.py:229"),
@@ -2229,6 +2471,9 @@ def main() -> int:
     before = counts()
     phase_fleet(fit, cpu_fit, grid["processed"], card)
     check(counts() == before, "the fleet phase launched a kernel: it is host code")
+    phase_llm(torch, card)
+    check(counts() == before, "the LLM phase launched a kernel: its products are "
+          "torch.matmul/einsum")
     for row, key in zip(kernels, ("k1", "k2")):
         row["launches_by_path"] = {"tracker": row["launches"], "offload_grid": grid[key]}
         row["launches"] += grid[key]

@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port of the per-frame generative hand tracker and its
-edge deployment.
+"""PyTorch/CUDA port of the per-frame generative hand tracker, its edge
+deployment, and the LLM-decode analogue of the paper's technique.
 
 A second package beside the JAX reference ``repro``: the same modules
 under the same names, written in PyTorch, with the reference's TPU
@@ -30,6 +30,16 @@ The package imports ``torch`` and numpy only; the tests hold it against
   servers, on an object and a vectorized discrete-event engine, with
   dispatch, plan caching, migration, the rate-controlled codec,
   telemetry and the SLO doctor (host code, as in the reference).
+* ``configs``  — the LLM analogue's ten architecture configs, the
+  registry and the input shapes (``TensorSpec``: shape and torch dtype).
+* ``models``   — its model substrate: layers, attention (GQA/MQA,
+  windows, MLA, the chunked online softmax), SSM, MoE, the multimodal
+  stubs and ``transformer`` (init, forward, prefill, caches, decode),
+  over the reference's stacked parameter dicts; no kernel of its own.
+* ``serving``  — the static ``Engine``, the ``ContinuousEngine`` and
+  ``edge`` (one decode step placed across tiers by the offload planner).
+* ``launch``   — ``serve``, the serving driver (the card by default).
 * ``examples`` — the reference's example programs, run as modules:
-  ``quickstart``, ``edge_offload_serve`` and ``fleet_sim``.
+  ``quickstart``, ``edge_offload_serve``, ``fleet_sim`` and
+  ``llm_edge_decode``.
 """
