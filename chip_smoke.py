@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the hand tracker, and of its LLM-decode
-analogue, on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of the hand tracker, and of its LLM
+analogue (serving and training), on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -136,7 +136,27 @@ Phases (any failure exits non-zero and prints no result line):
      tokens + 16 decode steps against the forward over 32, within
      LLM_FULL_DECODE_BOUND, with the bfloat16 run's first-token
      agreement printed;
- 18. one {"kernels": [...]} line with all twelve kernels and the seven
+ 18. the LLM analogue's training path (``repro_torch.optim``,
+     ``checkpoint``, ``data.tokens``, ``launch.train``; no kernel of the
+     port: the counts are the same before and after it), float32 with
+     TF32 off where results are compared: every reduced arch's loss and
+     gradients (``loss_fn(remat=True)`` and ``torch.autograd.grad``) on
+     the card against the port's CPU run on the same parameters, within
+     TRAIN_TOL of each leaf's largest |g|, and remat off against on (the
+     loss bit-equal, the gradients within TRAIN_REMAT_TOL);
+     ``launch.train.run`` at the reference's integration settings
+     (gemma-2b reduced, 40 steps of 4 x 64, lr 1e-3) lowering its loss,
+     its step-40 checkpoint restored on the CPU; the parameters and AdamW
+     state after 3 steps saved from the card by ``checkpoint.io`` and
+     restored on the CPU bit for bit; gemma-2b at full width in bfloat16
+     through ``train.run(reduced=False)`` for 4 steps of 8 x 256 (every
+     logged loss and grad norm finite, the first loss beside ln V), then
+     its train step timed by CUDA events beside the bound 6 N tokens at
+     the data sheet's dense bfloat16 rate, one step's peak memory with
+     and without remat (with remat lower, both under the card's memory),
+     and one ``adamw.update`` at lr_scale 1 moving the bfloat16
+     parameters;
+ 19. one {"kernels": [...]} line with all twelve kernels and the seven
      one-launch paths (K1's and K2's launches counted over the tracker
      and the offload grid), then the {"ok": ...} line last.
 
@@ -2287,6 +2307,269 @@ def phase_llm(torch, card):
         f"{worst:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the LLM analogue's training path (``repro_torch.optim``,
+# ``checkpoint``, ``data.tokens``, ``launch.train``).
+
+TRAIN_TOL = 1e-5  # reduced archs, float32, TF32 off: the card against the port's CPU
+TRAIN_REMAT_TOL = 1e-6  # the card's gradients, remat on against off
+# A dense step's operations are 6 N tokens (forward 2, backward 4); remat
+# recomputes the forward, which this bound does not count.
+PEAK_BF16_FLOPS = 989e12  # H100 SXM data sheet, dense bfloat16, 700 W
+TRAIN_TIMED_STEPS = 6  # full width: the first pays the allocator's growth, 5 are timed
+TRAIN_SPLIT_STEPS = 3  # full width, with remat and without: forward + backward, update
+
+
+def _train_batch(torch, cfg, device, batch=2, seq=32):
+    """tests/test_models_smoke.py's batch for one arch (B 2, S 32), its
+    tokens drawn with numpy."""
+    import numpy as np
+
+    from repro_torch.models import multimodal
+
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    out = {"tokens": torch.as_tensor(tokens, device=device),
+           "targets": torch.as_tensor(np.roll(tokens, -1, axis=1), device=device),
+           "loss_mask": torch.ones((batch, seq), dtype=torch.float32, device=device)}
+    if cfg.mrope:
+        n = seq + cfg.frontend_tokens
+        out["positions"] = torch.arange(n, dtype=torch.int32, device=device).expand(3, batch, n)
+    if cfg.mrope or cfg.modality == "vision":
+        out["frontend_embeds"] = multimodal.fake_frontend_embeds(cfg, batch, device=device)
+    if cfg.encoder_layers:
+        out["encoder_tokens"] = multimodal.fake_frontend_embeds(cfg, batch, device=device)
+        out.pop("frontend_embeds", None)
+    return out
+
+
+def _grad_errs(torch, transformer, got, want):
+    """{path: max |got - want| / max |want|} over two gradient trees."""
+    want = dict(transformer.tree_leaves(want))
+    out = {}
+    for path, g in transformer.tree_leaves(got):
+        w = want[path].to(g.device)
+        out[path] = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+    return out
+
+
+def _bit_equal_trees(torch, transformer, got, want):
+    """Paths where two trees (any devices) differ in a bit."""
+    bits = lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    want = dict(transformer.tree_leaves(want))
+    return [p for p, t in transformer.tree_leaves(got)
+            if t.dtype != want[p].dtype or not torch.equal(bits(t.cpu()), bits(want[p].cpu()))]
+
+
+def phase_train(torch, card):
+    """The LLM analogue's training path on the port (slice 7).  a: every
+    reduced arch's loss and gradients on the card against the port's CPU,
+    and remat on against off; b: ``launch.train.run`` at the reference's
+    integration settings, then a checkpoint written from the card and
+    restored on the CPU; c: gemma-2b trained at full width in bfloat16
+    through ``train.run``, then its step timed by CUDA events, its peak
+    memory with and without remat, and one AdamW update at lr_scale 1."""
+    import contextlib
+    import io
+    import math
+    import tempfile
+
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+
+    t_start = time.perf_counter()
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 must stay off where the card's results are compared")
+
+    # a. reduced parity: parameters drawn once on the CPU and copied to the card
+    worst, worst_remat = 0.0, 0.0
+    for arch in registry.list_archs():
+        cfg = registry.get(arch).reduced()
+        params = transformer.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        on_card = transformer.tree_map(lambda t: t.to(device), params)
+        (want_loss, _), want = train.value_and_grad(cfg, params,
+                                                    _train_batch(torch, cfg, "cpu"))
+        batch = _train_batch(torch, cfg, device)
+        (loss, _), got = train.value_and_grad(cfg, on_card, batch)
+        (loss0, _), got0 = train.value_and_grad(cfg, on_card, batch, remat=False)
+        errs = _grad_errs(torch, transformer, got, want)
+        remat_errs = _grad_errs(torch, transformer, got0, got)
+        finite = all(bool(torch.isfinite(g).all()) for _, g in transformer.tree_leaves(got))
+        err, remat_err = max(errs.values()), max(remat_errs.values())
+        loss_err = abs(float(loss) - float(want_loss))
+        worst, worst_remat = max(worst, err, loss_err), max(worst_remat, remat_err)
+        check(finite and loss_err < TRAIN_TOL and err < TRAIN_TOL,
+              f"{cfg.name}: the card's loss differs from the CPU's by {loss_err!r} and its "
+              f"gradients by {err!r} of a leaf's largest (bound {TRAIN_TOL}), finite {finite}")
+        check(torch.equal(loss0, loss) and remat_err < TRAIN_REMAT_TOL,
+              f"{cfg.name}: remat changed the card's loss ({float(loss)!r} against "
+              f"{float(loss0)!r}) or its gradients by {remat_err!r} (bound {TRAIN_REMAT_TOL})")
+        log(f"[train] {cfg.name:30s} on {card} vs the CPU, float32, TF32 off: loss "
+            f"{float(loss):.6f} (|err| {loss_err:.3e}), {len(errs)} gradient leaves, worst "
+            f"{err:.3e} of the leaf's largest |g| at {max(errs, key=errs.get)} (bound "
+            f"{TRAIN_TOL}); remat off: loss bit-equal, gradients {remat_err:.3e} (bound "
+            f"{TRAIN_REMAT_TOL})")
+
+    # b. the reference's integration run on the card, and a checkpoint crossing to the CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = train.run("gemma-2b", steps=40, batch=4, seq=64, reduced=True, lr=1e-3,
+                            log_every=39, device="cuda", ckpt_dir=os.path.join(tmp, "run"))
+        dt = time.perf_counter() - t0
+        for line in out.getvalue().splitlines():
+            log(f"[train] {line}")
+        check(res["final_loss"] < res["first_loss"],
+              f"train.run on the card did not lower the loss: {res['losses']}")
+        check(ckpt_io.latest_step(os.path.join(tmp, "run")) == 40,
+              "train.run's checkpoint is not at step 40")
+        cfg = train.train_config("gemma-2b", seq=64)
+        ran = ckpt_io.restore(os.path.join(tmp, "run"), 40,
+                              {"params": transformer.param_shapes(cfg)})["params"]
+        check(all(bool(torch.isfinite(t).all()) for _, t in transformer.tree_leaves(ran)),
+              "train.run's final checkpoint holds a non-finite parameter")
+        log(f"[train] train.run('gemma-2b', steps=40, batch=4, seq=64, reduced=True, lr=1e-3) on "
+            f"{card}: {res['params']} parameters, loss {res['first_loss']:.4f} -> "
+            f"{res['final_loss']:.4f} in {dt:.2f} s (host clock, first call); its step-40 "
+            f"checkpoint restored on the CPU, every parameter finite")
+
+        params = transformer.init_params(cfg, torch.Generator(device=device).manual_seed(1),
+                                         device=device)
+        state = adamw.init(params)
+        step_fn = train.build_train_step(cfg, adamw.AdamWConfig(lr=1e-3), None,
+                                         adamw.cosine_schedule(40))
+        pipe = iter(TokenPipeline(TokenPipelineConfig(cfg.vocab_size, 64, 4, seed=1)))
+        for _ in range(3):
+            batch = {k: torch.as_tensor(v, device=device) for k, v in next(pipe).items()}
+            params, state, _ = step_fn(params, state, batch)
+        ckpt_io.save(os.path.join(tmp, "state"), 3, {"params": params, "opt": state})
+        check(ckpt_io.latest_step(os.path.join(tmp, "state")) == 3, "latest_step is not 3")
+        back = ckpt_io.restore(os.path.join(tmp, "state"), 3, {
+            "params": transformer.param_shapes(cfg), "opt": adamw.init(transformer.param_shapes(cfg))})
+        differ = (_bit_equal_trees(torch, transformer, back["params"], params)
+                  + _bit_equal_trees(torch, transformer, back["opt"].mu, state.mu)
+                  + _bit_equal_trees(torch, transformer, back["opt"].nu, state.nu))
+        check(not differ and back["opt"].step.device.type == "cpu"
+              and int(back["opt"].step) == int(state.step) == 3,
+              f"the checkpoint from the card restored on the CPU differs at {differ}")
+        log(f"[train] {cfg.name}: parameters and AdamW state after 3 steps on the card, saved "
+            f"by checkpoint.io and restored on the CPU: bit-equal "
+            f"({len(transformer.tree_leaves(params))} x 3 leaves and the step), latest_step 3")
+    del params, state, back, ran
+
+    # c. gemma-2b at full width in bfloat16 through the normal entry point
+    full = registry.get(LLM_FULL_ARCH)
+    n_params = sum(t.numel() for _, t in transformer.tree_leaves(transformer.param_shapes(full)))
+    batch_n, seq = 8, 256
+    tokens = batch_n * seq
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = train.run(LLM_FULL_ARCH, reduced=False, steps=4, batch=batch_n, seq=seq,
+                        log_every=1, device="cuda")
+    run_peak = torch.cuda.max_memory_allocated()
+    logged = []
+    for line in out.getvalue().splitlines():
+        log(f"[train] {line}")
+        words = line.split()
+        logged.append((float(words[3]), float(words[5])))
+    check(len(logged) == 4 and all(math.isfinite(x) for pair in logged for x in pair),
+          f"train.run at full width logged a non-finite loss or grad norm: {logged}")
+    check(res["arch"] == full.name and res["params"] == n_params,
+          f"train.run at full width returned {res}")
+    log(f"[train] {full.name} at full width ({full.num_layers} layers, d_model {full.d_model}, "
+        f"vocab {full.vocab_size}, {full.dtype}) through train.run(reduced=False, steps=4, "
+        f"batch={batch_n}, seq={seq}, device='cuda') on {card}: {n_params} parameters; first "
+        f"loss {res['first_loss']:.4f} (ln {full.vocab_size} = "
+        f"{math.log(full.vocab_size):.4f}), losses {[round(l, 4) for l, _ in logged]}, grad "
+        f"norms {[round(g, 4) for _, g in logged]}; peak memory allocated "
+        f"{run_peak / 2**30:.3f} GiB")
+
+    # the step timed by CUDA events, on the same config and state sizes
+    opt_cfg = adamw.AdamWConfig()
+    params = transformer.init_params(full, torch.Generator(device=device).manual_seed(0),
+                                     device=device)
+    state = adamw.init(params)
+    step_fn = train.build_train_step(full, opt_cfg, None, adamw.cosine_schedule(300))
+    pipe = iter(TokenPipeline(TokenPipelineConfig(full.vocab_size, seq, batch_n)))
+    batches = [{k: torch.as_tensor(v, device=device) for k, v in next(pipe).items()}
+               for _ in range(TRAIN_TIMED_STEPS)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_TIMED_STEPS + 1)]
+    ev[0].record()
+    for i, batch in enumerate(batches):
+        params, state, metrics = step_fn(params, state, batch)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(TRAIN_TIMED_STEPS)]
+    check(math.isfinite(float(metrics["loss"])), "the timed full-width step's loss is not finite")
+    median = statistics.median(step_ms[1:])
+    bound_ms = 6 * n_params * tokens / PEAK_BF16_FLOPS * 1e3
+    log(f"[train] {full.name} at full width, train step by CUDA events on {card} ({batch_n} x "
+        f"{seq} = {tokens} tokens, remat on): first {step_ms[0]:.3f} ms, then median "
+        f"{median:.3f} ms (min {min(step_ms[1:]):.3f}, max {max(step_ms[1:]):.3f} over "
+        f"{TRAIN_TIMED_STEPS - 1} steps), {tokens / (median / 1e3):.1f} tok/s; bound "
+        f"{bound_ms:.3f} ms (6 x {n_params} x {tokens} = {6 * n_params * tokens:.3e} FLOP at "
+        f"the data sheet's {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s dense bfloat16, 700 W; remat's "
+        f"recomputation not counted), {bound_ms / median:.3f} of it")
+
+    # each step with remat and without (the train step's body: loss_fn and
+    # torch.autograd.grad, then adamw.update at lr_scale 0, which leaves the
+    # parameters as they are), on the same state: its peak memory, and its
+    # forward + backward and its update timed by CUDA events
+    peaks, split = {}, {}
+    for remat in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for batch in batches[:TRAIN_SPLIT_STEPS]:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            _, grads = train.value_and_grad(full, params, batch, remat=remat)
+            ev[1].record()
+            adamw.update(opt_cfg, grads, state, params, 0.0)
+            ev[2].record()
+            del grads
+            torch.cuda.synchronize()
+            ms.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+        peaks[remat] = torch.cuda.max_memory_allocated()
+        split[remat] = [statistics.median(x) for x in zip(*ms)]
+    total = torch.cuda.get_device_properties(device).total_memory
+    check(peaks[True] < peaks[False] and max(peaks.values()) < total,
+          f"peak memory with remat {peaks[True]} B, without {peaks[False]} B, card {total} B: "
+          f"remat must peak lower, and both under the card's memory")
+    for remat in (True, False):
+        fb, upd = split[remat]
+        log(f"[train] {full.name} at full width on {card}, remat {'on' if remat else 'off'}: "
+            f"peak memory allocated {peaks[remat] / 2**30:.3f} GiB (card {total / 2**30:.3f} "
+            f"GiB); by CUDA events, median of {TRAIN_SPLIT_STEPS}: forward + backward "
+            f"{fb:.3f} ms, adamw.update {upd:.3f} ms, step {fb + upd:.3f} ms, "
+            f"{tokens / ((fb + upd) / 1e3):.1f} tok/s")
+
+    # one update at lr_scale 1 must move the bfloat16 parameters
+    _, grads = train.value_and_grad(full, params, batches[0])
+    before = transformer.tree_map(torch.clone, params)
+    adamw.update(opt_cfg, grads, state, params, 1.0)
+    before = dict(transformer.tree_leaves(before))
+    moved = [p for p, t in transformer.tree_leaves(params) if not torch.equal(t, before[p])]
+    check(bool(moved), "adamw.update at lr_scale 1 moved no bfloat16 parameter")
+    log(f"[train] {full.name}: one adamw.update at lr_scale 1 (lr {opt_cfg.lr}) moved "
+        f"{len(moved)} of {len(before)} bfloat16 leaves; unmoved: "
+        f"{sorted(set(before) - set(moved))}")
+    del params, state, before, grads, batches, metrics
+    torch.cuda.empty_cache()
+    log(f"[train] phase took {time.perf_counter() - t_start:.2f} s; worst reduced error "
+        f"{worst:.3e}, remat {worst_remat:.3e}")
+
+
 SLICE3_KERNELS = [
     # key, name, replaces (all in src/repro_torch/csrc/quant_codec.cu)
     ("k5", "significant_bit_widths", "src/repro/codec/kernels.py:229"),
@@ -2474,6 +2757,9 @@ def main() -> int:
     phase_llm(torch, card)
     check(counts() == before, "the LLM phase launched a kernel: its products are "
           "torch.matmul/einsum")
+    phase_train(torch, card)
+    check(counts() == before, "the training phase launched a kernel: its products are "
+          "torch.matmul/einsum, its optimizer elementwise torch ops")
     for row, key in zip(kernels, ("k1", "k2")):
         row["launches_by_path"] = {"tracker": row["launches"], "offload_grid": grid[key]}
         row["launches"] += grid[key]

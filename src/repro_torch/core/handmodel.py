@@ -22,6 +22,7 @@ per device (``_geometry``), so no host-to-device copy happens per call.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import NamedTuple, Tuple
 
@@ -235,6 +236,15 @@ def _geometry(device: torch.device) -> _Geometry:
 # ---------------------------------------------------------------------------
 # Forward kinematics -> sphere primitives
 # ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class HandGeometry:
+    """Static geometry description (non-traced constants)."""
+
+    num_spheres: int = NUM_SPHERES
+    palm_width: float = PALM_WIDTH
+    palm_length: float = PALM_LENGTH
 
 
 def hand_spheres_local(angles: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,1 +1,2 @@
-"""Launchers: the serving driver (``serve``)."""
+"""Launchers: the serving driver (``serve``) and the training driver
+(``train``)."""

@@ -11,8 +11,11 @@ layers, with the single shared attention block (one set of weights, its
 own KV cache per application) applied after each group.
 
 The ``shard`` hook keeps this module mesh-agnostic; its default is the
-identity.  ``remat`` is accepted and changes no value (recomputation
-belongs to training).
+identity.  ``remat`` recomputes activations in the backward pass where
+the reference applies ``jax.checkpoint``: each decoder layer, each SSM
+layer and each hybrid group (its SSM layers and the shared attention
+block) runs under ``torch.utils.checkpoint``, with its parameters passed
+in so their gradients land in the stacked leaves.  It changes no value.
 
 Every function infers its device from its inputs; ``init_params`` and
 ``init_cache`` take one, and default to the card.
@@ -25,6 +28,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, layers, moe, ssm
@@ -317,20 +321,32 @@ def trunk(
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
+    def run(body, *args):
+        if remat:
+            return torch.utils.checkpoint.checkpoint(body, *args, use_reentrant=False)
+        return body(*args)
+
     if cfg.arch_type in ("dense", "moe", "vlm", "audio"):
         for i, win in enumerate(cfg.layer_window_sizes()):
-            x, a = _decoder_layer_fwd(cfg, _layer(params["layers"], i), x, positions, win,
-                                      memory, shard)
+            body = lambda lp, h, win=win: _decoder_layer_fwd(cfg, lp, h, positions, win,
+                                                             memory, shard)
+            x, a = run(body, _layer(params["layers"], i), x)
             if a is not None:
                 aux_total = aux_total + a
     elif cfg.arch_type == "ssm":
+        body = lambda lp, h: _ssm_layer_fwd(cfg, lp, h, None, shard)[0]
         for i in range(cfg.num_layers):
-            x, _ = _ssm_layer_fwd(cfg, _layer(params["layers"], i), x, None, shard)
+            x = run(body, _layer(params["layers"], i), x)
     elif cfg.arch_type == "hybrid":
+
+        def group_body(lps, sp, h):
+            for lp in lps:
+                h, _ = _ssm_layer_fwd(cfg, lp, h, None, shard)
+            return _shared_attn_fwd(cfg, sp, h, positions, shard)
+
         for group in _ssm_groups(cfg):
-            for i in group:
-                x, _ = _ssm_layer_fwd(cfg, _layer(params["layers"], i), x, None, shard)
-            x = _shared_attn_fwd(cfg, params["shared_attn"], x, positions, shard)
+            x = run(group_body, [_layer(params["layers"], i) for i in group],
+                    params["shared_attn"], x)
     else:
         raise ValueError(cfg.arch_type)
 

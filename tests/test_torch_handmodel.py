@@ -116,3 +116,16 @@ def test_camera_rays_match_reference():
     for scale in (2, 4):
         assert (tcam.crop_camera(tcam.Camera(), scale).__dict__
                 == jcam.crop_camera(jcam.Camera(), scale).__dict__)
+
+
+def test_hand_geometry_matches_reference():
+    """The frozen dataclass of static geometry constants: the same fields
+    and defaults as the reference's."""
+    import dataclasses
+
+    want, got = jhm.HandGeometry(), thm.HandGeometry()
+    assert [f.name for f in dataclasses.fields(got)] == [f.name for f in dataclasses.fields(want)]
+    assert dataclasses.astuple(got) == dataclasses.astuple(want)
+    assert got == thm.HandGeometry(thm.NUM_SPHERES, thm.PALM_WIDTH, thm.PALM_LENGTH)
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        got.num_spheres = 0
