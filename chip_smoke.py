@@ -156,12 +156,29 @@ Phases (any failure exits non-zero and prints no result line):
      and without remat (with remat lower, both under the card's memory),
      and one ``adamw.update`` at lr_scale 1 moving the bfloat16
      parameters;
- 19. one {"kernels": [...]} line with all twelve kernels and the seven
-     one-launch paths (K1's and K2's launches counted over the tracker
-     and the offload grid), then the {"ok": ...} line last.
+ 19. the multi-device path and the dry run (``launch.mesh``,
+     ``sharding.specs``, ``roofline``, ``launch.dryrun``): a one-rank NCCL
+     group and ``make_host_mesh()`` on the card; ``make_track_frame_sharded``
+     at the main path's width (128x128, 64 x 30) over the clip's first
+     frames on a generator seeded alike, bit-equal to ``make_track_frame``,
+     K1 31 and K2 30 launches a frame, < 3 cm; the reduced train step over
+     the one-rank mesh bit-equal to the meshless step; the op census around
+     one full-width gemma-2b decode step and train step at phases 17 and
+     18's settings, its roofline terms at the data sheet's peaks beside
+     their measured times; the dry run of gemma-2b train_4k and
+     qwen3-moe-30b-a3b decode_32k on the (16, 16) mesh (a fake process
+     group of 256 ranks), each in its own process started as the phase
+     begins, so that it runs on the host while a-d use the card: status ok, the
+     arguments' bytes per device equal to the specs' sum, an all-reduce in
+     the train step, one expert-parallel combine a layer in the decode;
+ 20. one {"kernels": [...]} line with all twelve kernels and the seven
+     one-launch paths (K1's and K2's launches counted over the tracker,
+     the offload grid and the sharded tracker), then the {"ok": ...} line
+     last.
 
 Each path (the tracker, the uplink, the quantized uplink with its
-entropy stage, the batched step, the offload grid) runs with the launch counts set to 0
+entropy stage, the batched step, the offload grid, the sharded tracker)
+runs with the launch counts set to 0
 just before it and read just after; a kernel of the path that was not
 launched fails the run.
 
@@ -170,6 +187,7 @@ Needs one CUDA card and nvcc; there is no CPU fallback.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import os
@@ -2305,6 +2323,7 @@ def phase_llm(torch, card):
         f"(printed, not checked)")
     log(f"[llm] phase took {time.perf_counter() - t_start:.2f} s; worst reduced error "
         f"{worst:.3e}")
+    return {"prefill_ms": prefill_ms, "decode_ms": decode_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -2568,6 +2587,292 @@ def phase_train(torch, card):
     torch.cuda.empty_cache()
     log(f"[train] phase took {time.perf_counter() - t_start:.2f} s; worst reduced error "
         f"{worst:.3e}, remat {worst_remat:.3e}")
+    return {"step_ms": median}
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the mesh and the dry run (``launch.mesh``, ``sharding.specs``,
+# the sharded tracker, ``roofline``, ``launch.dryrun``).
+
+MESH_FRAMES = 10  # the sharded tracker's clip: the main path's first 10 frames, 9 tracked
+# (arch, shape) on the (16, 16) production mesh; each runs in a process of
+# its own (its fake process group must not meet this process's NCCL one),
+# started as phase 19 begins: started earlier, their host load slowed the
+# host-bound phases 5 and 17 by half
+DRYRUN_COMBOS = (("gemma-2b", "train_4k"), ("qwen3-moe-30b-a3b", "decode_32k"))
+DRYRUN_TIMEOUT = 900
+
+
+def start_dryruns(out_dir):
+    """The dry-run combos, each ``python -m repro_torch.launch.dryrun`` in a
+    process of its own writing to ``out_dir``; every one is killed at exit
+    if it still runs.  Returns (out_dir, the runs)."""
+    import atexit
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    runs = []
+    for arch, shape in DRYRUN_COMBOS:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape, "--mesh", "single", "--out", out_dir, "--force"],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        runs.append((arch, shape, proc, time.perf_counter()))
+        atexit.register(lambda p=proc: p.poll() is None and (p.kill(), p.wait()))
+    return out_dir, runs
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _stand_in_mesh(shape, axes):
+    """An object with a mesh's axis names and shape: all the sharding
+    rules read."""
+    import types
+
+    return types.SimpleNamespace(mesh_dim_names=axes, shape=shape)
+
+
+def _dryrun_arg_bytes(arch, shape_name):
+    """The dry run's arguments per device on the (16, 16) mesh, summed from
+    the port's specs: what ``build_*`` places, counted from shapes alone."""
+    from repro_torch.configs import registry, shapes as shp
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import specs
+
+    mesh = _stand_in_mesh((16, 16), ("data", "model"))
+    cfg, shape = registry.get(arch), shp.ALL_SHAPES[shape_name]
+    params = transformer.param_shapes(cfg)
+    p_specs = specs.param_specs(params, mesh)
+    total = specs.local_nbytes(params, p_specs, mesh)
+    batch = shp.token_inputs(cfg, shape)
+    if shape.kind == "train":
+        opt = adamw.init(params)
+        total += specs.local_nbytes(opt, adamw.AdamWState((), p_specs, p_specs), mesh)
+    if shape.kind == "decode":
+        cache = transformer.cache_shapes(cfg, shape.global_batch, shape.seq_len)
+        total += specs.local_nbytes(cache, specs.cache_specs(cache, mesh), mesh)
+        batch = {k: v for k, v in batch.items()
+                 if k == "tokens" or (k == "positions" and cfg.mrope)}
+    return total + specs.local_nbytes(batch, specs.input_specs_tree(batch, mesh), mesh)
+
+
+def phase_mesh(torch, tracker_mod, rs, pu, frames, truth, card, timed):
+    """The multi-device path on one card (slice 8).  a: a one-rank NCCL
+    group and ``make_host_mesh()``; b: ``make_track_frame_sharded`` at full
+    width against ``make_track_frame`` on the same draws; c: the reduced
+    train step over the one-rank mesh against the meshless step; d: the op
+    census around one full-width decode step and one train step, beside
+    phases 17 and 18's times; e: the dry-run combos' records.  Returns the
+    sharded tracker's K1 and K2 launches."""
+    import json as json_mod
+    import math
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry, shapes as shp
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.roofline import analysis, op_cost
+    from repro_torch.sharding import specs
+
+    import shutil
+    import tempfile
+
+    t_start = time.perf_counter()
+    device = torch.device("cuda", 0)
+    # e's host processes first: they run while a-d use the card
+    dryrun_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    atexit.register(shutil.rmtree, dryrun_dir, True)
+    dryruns = start_dryruns(dryrun_dir)
+
+    # a. one rank, one card
+    port = _free_port()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, device_id=device)
+    mesh = lmesh.make_host_mesh()
+    check(mesh.device_type == "cuda" and tuple(mesh.shape) == (1, 1)
+          and mesh.mesh_dim_names == ("data", "model"),
+          f"make_host_mesh() gave {mesh}")
+    log(f"[mesh] NCCL group of 1 rank (tcp://localhost:{port}), make_host_mesh(): {mesh}")
+
+    # b. the sharded tracker at full width, on the main path's draws
+    cfg = configs()[1]
+    sharded = tracker_mod.make_track_frame_sharded(cfg, mesh, "model", device=device)
+    local = tracker_mod.make_track_frame(cfg, device=device)
+    sharded(torch.Generator(device=device).manual_seed(5), truth[0], frames[1])  # NCCL set-up
+    torch.cuda.synchronize()
+
+    def track(step):
+        gen = torch.Generator(device=device).manual_seed(0)
+        h, out, ms = truth[0], [], []
+        for i in range(1, MESH_FRAMES):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            h, score = step(gen, h, frames[i])
+            ev[1].record()
+            ev[1].synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+            out.append((h, score))
+        return out, ms
+
+    rs.launches = 0
+    pu.launches = pu.launches_projected = 0
+    got, sharded_ms = track(sharded)
+    torch.cuda.synchronize()
+    k1, k2, k2_projected = rs.launches, pu.launches, pu.launches_projected
+    want, local_ms = track(local)
+    tracked = MESH_FRAMES - 1
+    differ = [i + 1 for i, ((h, s), (hw, sw)) in enumerate(zip(got, want))
+              if not (torch.equal(h, hw) and torch.equal(s, sw))]
+    errs = [float(torch.linalg.vector_norm(h[:3] - truth[i + 1][:3]))
+            for i, (h, _) in enumerate(got)]
+    mean_err = statistics.fmean(errs)
+    log(f"[mesh] make_track_frame_sharded over the mesh's 'model' axis, {cfg.camera.width}x"
+        f"{cfg.camera.height}, {cfg.pso.num_particles} particles x {cfg.pso.num_generations} "
+        f"generations, {tracked} frames on {card}: K1 {k1} and K2 {k2} launches (expected "
+        f"{tracked * (1 + cfg.pso.num_generations)} and {tracked * cfg.pso.num_generations}, "
+        f"{k2_projected} with the projection fused); h and score bit-equal to make_track_frame "
+        f"on the same draws on {tracked - len(differ)} of {tracked} frames; mean position "
+        f"error {mean_err * 100:.3f} cm; frame time by CUDA events: median "
+        f"{statistics.median(sharded_ms):.3f} ms sharded, {statistics.median(local_ms):.3f} ms "
+        f"unsharded")
+    check(not differ, f"the sharded tracker differs from make_track_frame at frames {differ}")
+    check(k1 == tracked * (1 + cfg.pso.num_generations)
+          and k2 == k2_projected == tracked * cfg.pso.num_generations,
+          f"the sharded tracker launched K1 {k1} and K2 {k2} ({k2_projected} fused) times")
+    check(mean_err < 0.03, f"the sharded tracker's mean position error {mean_err:.4f} m >= 3 cm")
+
+    # c. the reduced train step over the one-rank mesh against the meshless one
+    tcfg = train.train_config("gemma-2b", seq=64)
+    params = transformer.init_params(tcfg, torch.Generator(device=device).manual_seed(1),
+                                     device=device)
+    placed = specs.distribute(transformer.tree_map(torch.clone, params),
+                              specs.param_specs(params, mesh), mesh)
+    state, placed_state = adamw.init(params), adamw.init(placed)
+    opt_cfg, schedule = adamw.AdamWConfig(lr=1e-3), adamw.cosine_schedule(40)
+    step = train.build_train_step(tcfg, opt_cfg, None, schedule)
+    mesh_step = train.build_train_step(tcfg, opt_cfg, mesh, schedule)
+    pipe = iter(TokenPipeline(TokenPipelineConfig(tcfg.vocab_size, 64, 4, seed=1)))
+    losses = []
+    for _ in range(3):
+        host = next(pipe)
+        batch = {k: torch.as_tensor(v, device=device) for k, v in host.items()}
+        params, state, m = step(params, state, batch)
+        placed, placed_state, pm = mesh_step(
+            placed, placed_state, specs.distribute(batch, specs.input_specs_tree(batch, mesh),
+                                                   mesh))
+        losses.append((float(m["loss"]), float(pm["loss"].full_tensor())))
+    gathered = transformer.tree_map(lambda t: t.full_tensor(), placed)
+    differ = _bit_equal_trees(torch, transformer, gathered, params)
+    differ += [f"mu/{p}" for p in _bit_equal_trees(
+        torch, transformer, transformer.tree_map(lambda t: t.full_tensor(), placed_state.mu),
+        state.mu)]
+    log(f"[mesh] {tcfg.name}: 3 train steps of 4 x 64 over the one-rank mesh (DTensors, the "
+        f"gradients redistributed to the parameters' placements) against the meshless step "
+        f"on {card}: losses {losses}; parameters and AdamW moments bit-equal on "
+        f"{len(transformer.tree_leaves(params)) * 2 - len(differ)} of "
+        f"{len(transformer.tree_leaves(params)) * 2} leaves")
+    check(not differ and all(a == b for a, b in losses),
+          f"the one-rank mesh's train step differs from the meshless step at {differ}, "
+          f"losses {losses}")
+    del params, placed, state, placed_state, gathered
+    dist.destroy_process_group()
+
+    # d. the op census of one full-width decode step and one train step
+    full = registry.get(LLM_FULL_ARCH)
+    n_params = sum(t.numel() for _, t in transformer.tree_leaves(transformer.param_shapes(full)))
+    params = transformer.init_params(full, torch.Generator(device=device).manual_seed(0),
+                                     device=device)
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, full.vocab_size, size=(8, 32)), dtype=torch.int32,
+                             device=device)
+    with torch.no_grad():
+        logits, cache = transformer.prefill(full, params, tokens, max_len=32 + 32 + 8)
+        cur = logits.argmax(-1).to(torch.int32)[:, None]
+        (step_logits, _), decode_cost = op_cost.op_cost(
+            transformer.decode_step, full, params, cache, cur)
+    check(bool(torch.isfinite(step_logits.float()).all()), "the censused decode step is not finite")
+    del cache, logits, step_logits
+    step_fn = train.build_train_step(full, adamw.AdamWConfig(), None, adamw.cosine_schedule(300))
+    state = adamw.init(params)
+    host = next(iter(TokenPipeline(TokenPipelineConfig(full.vocab_size, 256, 8))))
+    batch = {k: torch.as_tensor(v, device=device) for k, v in host.items()}
+    (_, _, metrics), train_cost = op_cost.op_cost(step_fn, params, state, batch)
+    check(math.isfinite(float(metrics["loss"])), "the censused train step's loss is not finite")
+    del params, state, batch, metrics
+    torch.cuda.empty_cache()
+    for label, cost, tokens_n, factor, measured in (
+            ("decode step, 8 sequences x 1 token (phase 17's)", decode_cost, 8, 2,
+             timed["decode_ms"]),
+            ("train step, 8 x 256 tokens, remat on (phase 18's)", train_cost, 8 * 256, 6,
+             timed["step_ms"])):
+        rep = analysis.RooflineReport(
+            arch=full.name, shape=label, mesh="one card", chips=1, hlo_flops=cost.flops,
+            hlo_bytes=cost.mem_bytes, coll_bytes=cost.coll_bytes,
+            coll_by_kind={k: int(v) for k, v in cost.coll_by_kind.items()},
+            model_flops=factor * n_params * tokens_n)
+        log(f"[mesh] op census of one {full.name} {label} on {card}: {cost.flops:.4e} FLOP "
+            f"({cost.transcendentals:.4e} transcendentals apart), {cost.mem_bytes:.4e} B of "
+            f"operands + outputs, collectives {cost.coll_bytes:.0f} B; model FLOPs "
+            f"{factor} N D = {factor} x {n_params} x {tokens_n} = {rep.model_flops:.4e}, useful "
+            f"ratio {rep.useful_ratio:.4f}; roofline terms at the data sheet's H100 SXM peaks "
+            f"(989 TFLOP/s dense bfloat16, 3.35 TB/s, 450 GB/s a direction): compute "
+            f"{rep.compute_s * 1e3:.4f} ms, memory {rep.memory_s * 1e3:.4f} ms, collective "
+            f"{rep.collective_s * 1e3:.4f} ms, dominant {rep.dominant}; measured by CUDA events "
+            f"in phase {17 if factor == 2 else 18}: {measured:.3f} ms")
+        check(cost.flops > 0 and 0 < rep.useful_ratio <= 1.0 and cost.coll_bytes == 0,
+              f"the {label}'s census is off: {cost}, useful ratio {rep.useful_ratio}")
+
+    # e. the dry-run combos, each run in its own process (host time)
+    out_dir, runs = dryruns
+    for arch, shape_name, proc, t0 in runs:
+        try:
+            out, err = proc.communicate(timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail(f"the dry run of {arch} {shape_name} outlived {DRYRUN_TIMEOUT} s")
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0, f"the dry run of {arch} {shape_name} exited "
+              f"{proc.returncode}: {out[-1000:]} {err[-2000:]}")
+        rec = json_mod.loads((pathlib.Path(out_dir) /
+                              f"{arch}__{shape_name}__pod16x16.json").read_text())
+        want_args = _dryrun_arg_bytes(arch, shape_name)
+        r, notes = rec["roofline"], rec["notes"]
+        log(f"[dryrun] {arch} {shape_name} on pod16x16 (a fake group of 256 ranks): status "
+            f"{rec['status']}, {seconds:.2f} s of host time for the process "
+            f"(build {rec['lower_s']} s, step {rec['compile_s']} s); per device: arguments "
+            f"{rec['memory']['argument_size_in_bytes']} B (the specs' sum {want_args} B), peak "
+            f"{rec['memory']['bytes_per_chip'] / 2**30:.3f} GiB, {r['hlo_flops']:.4e} FLOP, "
+            f"{r['hlo_bytes']:.4e} B, collectives {r['coll_by_kind']}; model FLOPs "
+            f"{r['model_flops']:.4e}, useful ratio {r['useful_ratio']:.4f}; roofline at the "
+            f"data sheet's H100 SXM peaks: compute {r['compute_s']:.4e} s, memory "
+            f"{r['memory_s']:.4e} s, collective {r['collective_s']:.4e} s ({r['dominant']}); "
+            f"expert-parallel combines {notes['expert_parallel_combines']}; replicated "
+            f"fallbacks {notes['fallbacks']}")
+        check(rec["status"] == "ok" and rec["memory"]["argument_size_in_bytes"] == want_args,
+              f"the dry run of {arch} {shape_name}: {rec.get('status')} "
+              f"{rec.get('error', '')[:500]}")
+        cfg_d = registry.get(arch)
+        if shp.ALL_SHAPES[shape_name].kind == "train":
+            check(r["coll_by_kind"]["all-reduce"] > 0, "the dry-run train step has no all-reduce")
+        else:
+            check(notes["expert_parallel_combines"] == cfg_d.num_layers
+                  and r["coll_by_kind"]["all-reduce"] > 0,
+                  f"the dry-run decode ran {notes['expert_parallel_combines']} expert-parallel "
+                  f"combines (expected {cfg_d.num_layers}, one a layer, each a sum over model)")
+    log(f"[mesh] phase took {time.perf_counter() - t_start:.2f} s")
+    return {"k1": k1, "k2": k2}
 
 
 SLICE3_KERNELS = [
@@ -2754,15 +3059,17 @@ def main() -> int:
     before = counts()
     phase_fleet(fit, cpu_fit, grid["processed"], card)
     check(counts() == before, "the fleet phase launched a kernel: it is host code")
-    phase_llm(torch, card)
+    timed = phase_llm(torch, card)
     check(counts() == before, "the LLM phase launched a kernel: its products are "
           "torch.matmul/einsum")
-    phase_train(torch, card)
+    timed.update(phase_train(torch, card))
     check(counts() == before, "the training phase launched a kernel: its products are "
           "torch.matmul/einsum, its optimizer elementwise torch ops")
+    sharded = phase_mesh(torch, tracker_mod, rs, pu, frames, truth, card, timed)
     for row, key in zip(kernels, ("k1", "k2")):
-        row["launches_by_path"] = {"tracker": row["launches"], "offload_grid": grid[key]}
-        row["launches"] += grid[key]
+        row["launches_by_path"] = {"tracker": row["launches"], "offload_grid": grid[key],
+                                   "sharded_tracker": sharded[key]}
+        row["launches"] += grid[key] + sharded[key]
     rows = (SLICE2_KERNELS
             + [(key, name, "src/repro_torch/csrc/quant_codec.cu", replaces)
                for key, name, replaces in SLICE3_KERNELS]

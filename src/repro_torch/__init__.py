@@ -38,7 +38,14 @@ The package imports ``torch`` and numpy only; the tests hold it against
   over the reference's stacked parameter dicts; no kernel of its own.
 * ``serving``  — the static ``Engine``, the ``ContinuousEngine`` and
   ``edge`` (one decode step placed across tiers by the offload planner).
-* ``launch``   — ``serve``, the serving driver (the card by default).
+* ``launch``   — ``serve`` and ``train``, the serving and training
+  drivers (the card by default); ``mesh``, the production and host
+  ``DeviceMesh``es; ``dryrun``, one step of every (arch, shape, mesh)
+  combo on meta tensors in a fake process group of 256 or 512 ranks.
+* ``sharding`` — the reference's sharding rules as DTensor placements.
+* ``roofline`` — the per-device op census (``op_cost``, a
+  ``TorchDispatchMode``), the roofline terms and the dry run's tables.
+* ``optim``, ``checkpoint`` — AdamW and the npz checkpoint format.
 * ``examples`` — the reference's example programs, run as modules:
   ``quickstart``, ``edge_offload_serve``, ``fleet_sim`` and
   ``llm_edge_decode``.

@@ -52,6 +52,8 @@ def _rebuild(template: Any, leaves) -> Any:
 def _to_numpy(leaf: Any) -> np.ndarray:
     if not isinstance(leaf, torch.Tensor):
         return np.asarray(leaf)
+    if hasattr(leaf, "full_tensor"):  # a DTensor: every rank gathers the whole
+        leaf = leaf.full_tensor()
     leaf = leaf.detach().cpu()
     if leaf.dtype == torch.bfloat16:
         return leaf.view(torch.int16).numpy().view("V2")
@@ -105,22 +107,31 @@ def restore(
     shardings: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, Any]:
     """Restore trees matching ``templates``' structure and leaf dtypes, on
-    the CPU.  ``shardings``, when given, maps a tree name to the device its
-    leaves go to (a ``torch.device`` or its name: the one-device case of
-    the reference's sharding trees); a multi-device placement is not
-    ported and raises ``NotImplementedError``."""
+    the CPU.  ``shardings``, when given, maps a tree name to where its
+    leaves go: a ``torch.device`` or its name (one device), or a
+    ``(mesh, specs)`` pair — a ``DeviceMesh`` and a spec tree matching the
+    template (``sharding.specs``) — which makes each leaf a DTensor placed
+    by its spec (every rank reads the file and keeps its shard).  Any other
+    kind of placement raises ``TypeError``."""
     path = os.path.join(directory, f"ckpt_{step:08d}.npz")
     out = {}
     with np.load(path) as data:
         for name, template in templates.items():
-            device = shardings.get(name) if shardings else None
-            if device is not None and not isinstance(device, (str, torch.device)):
-                raise NotImplementedError(
-                    f"restore places a tree on one device; {type(device).__name__} "
-                    "is a multi-device placement, which the port does not have")
-            leaves = []
-            for key, leaf in _items(template):
-                t = _to_tensor(data[f"{name}::{key}"], leaf.dtype)
-                leaves.append(t if device is None else t.to(device))
-            out[name] = _rebuild(template, iter(leaves))
+            where = shardings.get(name) if shardings else None
+            leaves = [_to_tensor(data[f"{name}::{key}"], leaf.dtype)
+                      for key, leaf in _items(template)]
+            if isinstance(where, tuple):
+                from repro_torch.sharding import specs
+
+                mesh, spec_tree = where
+                leaves = [t.to(mesh.device_type) for t in leaves]
+                out[name] = specs.distribute(_rebuild(template, iter(leaves)), spec_tree, mesh)
+            else:
+                if where is not None and not isinstance(where, (str, torch.device)):
+                    raise TypeError(
+                        f"restore places a tree on a device or by (mesh, specs); a "
+                        f"{type(where).__name__} is neither")
+                if where is not None:
+                    leaves = [t.to(where) for t in leaves]
+                out[name] = _rebuild(template, iter(leaves))
     return out

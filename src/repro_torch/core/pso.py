@@ -230,3 +230,28 @@ def run_chunked(
                                generator=generator)
         states.append(state)
     return state.global_best, state.global_best_score, tuple(states)
+
+
+def sharded_eval(eval_fn: EvalFn, mesh, axis: str = "model") -> EvalFn:
+    """Wrap a population evaluator so particles are sharded over a mesh
+    axis — the paper's GPGPU parallelism mapped onto the mesh's devices.
+    Every rank holds the whole swarm; rank r of ``axis`` evaluates rows
+    [r N/ranks, (r+1) N/ranks) through ``eval_fn`` (K1 on the card), and
+    the N scores are all-gathered (tiny: N floats), so the only
+    collective in the PSO loop is O(N) bytes.  N must divide by the
+    axis' size, as the reference's ``shard_map`` requires."""
+    from torch.distributed import _functional_collectives as funcol
+
+    group = mesh.get_group(axis)
+    ranks = mesh.size(mesh.mesh_dim_names.index(axis))
+    rank = mesh.get_local_rank(axis)
+
+    def _eval(hs: torch.Tensor) -> torch.Tensor:
+        n = hs.shape[0]
+        if n % ranks:
+            raise ValueError(f"{n} particles do not divide over {ranks} ranks of {axis!r}")
+        per = n // ranks
+        local = eval_fn(hs.narrow(0, rank * per, per))
+        return funcol.all_gather_tensor(local.contiguous(), 0, group).wait()
+
+    return _eval

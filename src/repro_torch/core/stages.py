@@ -240,3 +240,12 @@ def pytree_nbytes(tree) -> int:
         return 8
     shape = getattr(tree, "shape", ())
     return int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
+
+
+def flops_of_fn(fn: Callable, *args) -> float:
+    """FLOPs of ``fn(*args)`` by the op census (``roofline.op_cost``),
+    counted as XLA's cost analysis counts them: the port's counterpart of
+    the reference's ``flops_of_jaxpr``.  ``fn`` runs once."""
+    from repro_torch.roofline import op_cost
+
+    return op_cost.op_cost(fn, *args)[1].flops

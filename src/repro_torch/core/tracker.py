@@ -24,7 +24,7 @@ it reads a device value on the host: the frame's one synchronization is
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -81,12 +81,14 @@ def stage_preprocess(
 
 def stage_spawn(
     cfg: TrackerConfig, generator: Optional[torch.Generator],
-    h_prev: torch.Tensor, eval_fn: pso.EvalFn,
+    h_prev: torch.Tensor, eval_fn: pso.EvalFn, draws: Optional[Sequence] = None,
 ) -> Tuple[pso.SwarmState, torch.Tensor, torch.Tensor]:
-    """Stage 2: swarm initialization around h_t. Returns (state, lo, hi)."""
+    """Stage 2: swarm initialization around h_t. Returns (state, lo, hi).
+    ``draws`` replaces the generator's, as ``pso.init_swarm``'s."""
     lo = handmodel.parameter_lower_bounds(h_prev, cfg.pos_range, cfg.quat_range)
     hi = handmodel.parameter_upper_bounds(h_prev, cfg.pos_range, cfg.quat_range)
-    state = pso.init_swarm(h_prev, lo, hi, eval_fn, cfg.pso, generator=generator)
+    state = pso.init_swarm(h_prev, lo, hi, eval_fn, cfg.pso, generator=generator,
+                           draws=draws)
     return state, lo, hi
 
 
@@ -97,14 +99,17 @@ def stage_optimize(
     hi: torch.Tensor,
     eval_fn: pso.EvalFn,
     generator: Optional[torch.Generator],
+    draws: Optional[Sequence] = None,
 ) -> pso.SwarmState:
     """Stage 3: the PSO generations — the GPGPU-heavy step.  Each
     generation's update renormalizes the quaternion in the same launch
-    (``handmodel.normalize_configuration`` fused into K2)."""
-    for _ in range(cfg.pso.num_generations):
+    (``handmodel.normalize_configuration`` fused into K2).  ``draws``, one
+    entry a generation, replaces the generator's, as
+    ``pso.swarm_step``'s."""
+    for g in range(cfg.pso.num_generations):
         state = pso.swarm_step(
             state, lo, hi, eval_fn, cfg.pso, generator=generator,
-            project_quaternion=True,
+            draws=None if draws is None else draws[g], project_quaternion=True,
         )
     return state
 
@@ -129,16 +134,34 @@ def make_track_frame(
 ) -> Callable:
     """Build the (generator, h_prev, depth) -> (h_next, score) step on
     ``device``.  ``generator`` is a ``torch.Generator`` on that device;
-    h_prev and depth may be tensors or arrays, and are moved there."""
-    device = torch.device(device)
+    h_prev and depth may be tensors or arrays, and are moved there.  The
+    step's ``draws`` = (spawn draws, one entry a generation) replaces the
+    generator's draws: the parity tests feed the reference's through it."""
+    return _track_frame_fn(cfg, torch.device(device), lambda eval_fn: eval_fn)
 
-    def track_frame(generator: Optional[torch.Generator], h_prev, depth):
+
+def make_track_frame_sharded(
+    cfg: TrackerConfig, mesh, axis: str = "model", device: torch.device | str = "cuda"
+) -> Callable:
+    """Distributed variant: the particle population is sharded over a mesh
+    axis (the paper's GPGPU parallel axis mapped onto the mesh's
+    devices) through ``pso.sharded_eval``.  Every rank runs the same step
+    on the same frame and draws (a generator seeded alike on each rank, or
+    ``draws``), so the swarm stays replicated; the scores' all-gather is
+    the step's one collective."""
+    return _track_frame_fn(cfg, torch.device(device),
+                           lambda eval_fn: pso.sharded_eval(eval_fn, mesh, axis))
+
+
+def _track_frame_fn(cfg: TrackerConfig, device: torch.device, wrap_eval) -> Callable:
+    def track_frame(generator: Optional[torch.Generator], h_prev, depth, draws=None):
         h_prev = torch.as_tensor(h_prev, dtype=torch.float32, device=device)
         depth = torch.as_tensor(depth, dtype=torch.float32, device=device)
         d_o, mask = stage_preprocess(cfg, h_prev, depth)
-        eval_fn = _make_eval_fn(cfg, d_o, mask)
-        state, lo, hi = stage_spawn(cfg, generator, h_prev, eval_fn)
-        state = stage_optimize(cfg, state, lo, hi, eval_fn, generator)
+        eval_fn = wrap_eval(_make_eval_fn(cfg, d_o, mask))
+        spawn, gens = (None, None) if draws is None else draws
+        state, lo, hi = stage_spawn(cfg, generator, h_prev, eval_fn, spawn)
+        state = stage_optimize(cfg, state, lo, hi, eval_fn, generator, gens)
         return stage_refine(cfg, state, h_prev)
 
     return track_frame

@@ -19,6 +19,7 @@ import argparse
 import dataclasses
 import json
 import time
+from contextlib import nullcontext
 from typing import Dict, Optional
 
 import torch
@@ -30,7 +31,7 @@ from repro_torch.models import transformer
 from repro_torch.optim import adamw
 
 
-def value_and_grad(cfg, params, batch, *, remat=True):
+def value_and_grad(cfg, params, batch, *, remat=True, shard=transformer._no_shard):
     """``jax.value_and_grad(loss_fn, has_aux=True)`` on the port:
     ``((loss, metrics), grads)``, ``grads`` a tree like ``params`` from
     ``torch.autograd.grad``; a leaf the loss does not reach gets zeros,
@@ -38,7 +39,7 @@ def value_and_grad(cfg, params, batch, *, remat=True):
     live = transformer.tree_map(lambda t: t.detach().requires_grad_(), params)
     leaves = [t for _, t in transformer.tree_leaves(live)]
     with torch.enable_grad():
-        loss, metrics = transformer.loss_fn(cfg, live, batch, remat=remat)
+        loss, metrics = transformer.loss_fn(cfg, live, batch, shard=shard, remat=remat)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
     by_leaf = dict(zip(map(id, leaves), grads))
     metrics = {k: v.detach() for k, v in metrics.items()}
@@ -48,19 +49,50 @@ def value_and_grad(cfg, params, batch, *, remat=True):
 def build_train_step(cfg, opt_cfg, mesh, schedule):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``, metrics ``ce_loss``, ``aux_loss``, ``loss`` and
-    ``grad_norm``.  ``mesh`` must be None: the port runs on one device."""
+    ``grad_norm``.
+
+    With ``mesh=None`` the step runs on one device.  With a ``DeviceMesh``
+    the parameters, the AdamW state and the batch are DTensors on it
+    (``sharding.specs``: ``distribute`` by ``param_specs`` and
+    ``input_specs_tree``; ``adamw.init`` of the placed parameters); the
+    model runs under the mesh's shard hook, and each gradient is
+    redistributed to its parameter's placements before the update — over
+    the data axes that is the all-reduce of the per-shard partial sums,
+    as GSPMD inserts it.  The step's math is the same either way."""
+    shard, place, context = transformer._no_shard, (lambda grads, params: grads), nullcontext
     if mesh is not None:
-        raise NotImplementedError("the port trains on one device; a mesh is not ported")
+        from torch.distributed.device_mesh import DeviceMesh
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        from repro_torch.sharding import specs
+
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(
+                f"the port trains over a torch DeviceMesh; a {type(mesh).__name__} is not one")
+        shard = specs.make_shard_fn(mesh)
+        place = lambda grads, params: _placed_like(grads, params, mesh)
+        # tensors the model makes (positions, masks) read as replicated
+        context = implicit_replication
 
     def train_step(params, opt_state, batch):
-        (loss, metrics), grads = value_and_grad(cfg, params, batch, remat=True)
-        lr_scale = schedule(opt_state.step)
-        params, opt_state, opt_metrics = adamw.update(
-            opt_cfg, grads, opt_state, params, lr_scale
-        )
+        with context():
+            (loss, metrics), grads = value_and_grad(cfg, params, batch, remat=True,
+                                                    shard=shard)
+            grads = place(grads, params)
+            lr_scale = schedule(opt_state.step)
+            params, opt_state, opt_metrics = adamw.update(
+                opt_cfg, grads, opt_state, params, lr_scale
+            )
         return params, opt_state, dict(metrics, loss=loss, **opt_metrics)
 
     return train_step
+
+
+def _placed_like(grads, params, mesh):
+    """Each gradient redistributed to its parameter's placements."""
+    if isinstance(grads, dict):
+        return {k: _placed_like(g, params[k], mesh) for k, g in grads.items()}
+    return grads.redistribute(mesh, params.placements)
 
 
 def train_config(arch: str, reduced: bool = True, big: bool = False, seq: int = 256):

@@ -94,8 +94,18 @@ def _window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
 
 
 def pad_axis1(x: torch.Tensor, n: int) -> torch.Tensor:
-    """x zero-padded at the end of axis 1 by n."""
-    return F.pad(x, (0, 0) * (x.ndim - 2) + (0, n))
+    """x zero-padded at the end of axis 1 by n (x itself when n is 0).
+    Written as a concatenation: torch 2.11's DTensor pads a DTensor into
+    one of the wrong shape and placements."""
+    if n == 0:
+        return x
+    return torch.cat([x, zeros_axis1(x, n)], dim=1)
+
+
+def zeros_axis1(x: torch.Tensor, n: int) -> torch.Tensor:
+    """n zero rows along axis 1, shaped and placed as x's rows (a slice of
+    a DTensor keeps its placements, so joining them moves no data)."""
+    return torch.zeros_like(x.narrow(1, 0, 1)).expand(*x.shape[:1], n, *x.shape[2:])
 
 
 def _pv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -121,7 +131,25 @@ def attend_chunked(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Online-softmax attention, O(q_chunk * k_chunk) live score memory.
-    Supports distinct k and v head dims (MLA)."""
+    Supports distinct k and v head dims (MLA).
+
+    DTensor q, k, v placed alike and split over batch and heads only (the
+    sharding rules' placement) run the loops on each rank's local shards,
+    as the reference's per-device program does, and come back as a
+    DTensor placed like q: every op stays local, so none of the loops'
+    ops pays DTensor's dispatch."""
+    local = _local_heads(q, k, v)
+    if local is not None:
+        from torch.distributed.tensor import DTensor
+
+        mesh, placements, (q, k, v) = local
+        out = attend_chunked(
+            q, k, v, q_positions=_full(q_positions), k_positions=_full(k_positions),
+            window=window, causal=causal, q_chunk=q_chunk, k_chunk=k_chunk,
+            softcap_val=softcap_val, scale=scale)
+        # the shards split evenly (the reshapes into heads did), so the
+        # global shape is the local one times the split
+        return DTensor.from_local(out, mesh, placements, run_check=False)
     b, s, h, d = q.shape
     t = k.shape[1]
     kvh = k.shape[2]
@@ -171,6 +199,31 @@ def attend_chunked(
     # (B, H, S_pad, Dv) -> (B, S, H, Dv)
     out = torch.cat(outs, dim=2).transpose(1, 2)[:, :s]
     return out.to(q.dtype)
+
+
+def _local_heads(q, k, v):
+    """(mesh, placements, local q, k, v) when q, k and v are DTensors
+    placed alike, split over batch (dim 0) and heads (dim 2) only, with as
+    many query heads a kv head on each shard as in all; else None."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(q, DTensor):
+        return None
+    placements = q.placements
+    if not (isinstance(k, DTensor) and isinstance(v, DTensor)
+            and k.placements == v.placements == placements
+            and all(p == Replicate() or (isinstance(p, Shard) and p.dim in (0, 2))
+                    for p in placements)):
+        return None
+    lq, lk, lv = q.to_local(), k.to_local(), v.to_local()
+    if lq.shape[2] * k.shape[2] != lk.shape[2] * q.shape[2]:
+        return None
+    return q.device_mesh, placements, (lq, lk, lv)
+
+
+def _full(t):
+    """A DTensor's whole value (positions are replicated); a tensor as is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
 # ---------------------------------------------------------------------------

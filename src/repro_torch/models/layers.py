@@ -129,7 +129,9 @@ def embed(params, tokens: torch.Tensor) -> torch.Tensor:
     vocab = table.shape[0]
     idx = torch.where(tokens < 0, tokens + vocab, tokens)
     valid = (idx >= 0) & (idx < vocab)
-    rows = table[idx.clamp(0, vocab - 1)]
+    # F.embedding is table[ids]; on a DTensor it keeps the ids' batch
+    # split against a vocab-split table (an indexing op would replicate)
+    rows = F.embedding(idx.clamp(0, vocab - 1), table)
     return rows.masked_fill(~valid[..., None], float("nan"))
 
 

@@ -70,7 +70,7 @@ def init_ssm_block(generator, cfg: ArchConfig, dtype=torch.float32,
 
 def _causal_conv(w, bias, x: torch.Tensor, d_conv: int) -> torch.Tensor:
     """Depthwise causal conv over (B, S, C) + SiLU."""
-    pad = F.pad(x, (0, 0, d_conv - 1, 0))
+    pad = torch.cat([attention.zeros_axis1(x, d_conv - 1), x], dim=1)
     out = pad[:, 0: x.shape[1]] * w[0][None, None]
     for i in range(1, d_conv):
         out = out + pad[:, i: i + x.shape[1]] * w[i][None, None]
@@ -169,7 +169,9 @@ def ssm_forward(
 
     # conv windows for decode handoff: last (d_conv - 1) raw inputs
     def tail(arr):
-        return F.pad(arr, (0, 0, max(s.d_conv - 1 - seq, 0), 0))[:, -(s.d_conv - 1):]
+        if seq < s.d_conv - 1:
+            arr = torch.cat([attention.zeros_axis1(arr, s.d_conv - 1 - seq), arr], dim=1)
+        return arr[:, -(s.d_conv - 1):]
 
     conv_x_tail = tail(x_raw)
     conv_bc_tail = tail(bc_raw)

@@ -67,7 +67,8 @@ def _pieces(*leaves):
 
 
 def init(params: Any) -> AdamWState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    # zeros_like keeps a DTensor parameter's placements on its moments
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
     (first,) = next(_zip_leaves(params))
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=first.device),

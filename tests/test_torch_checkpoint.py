@@ -156,7 +156,7 @@ def test_restore_places_on_one_device_and_refuses_a_mesh(tmp_path):
     placed = tckpt.restore(str(tmp_path), 1, templates, shardings={"params": "cpu"})
     assert all(t.device.type == "cpu" for _, t in ttf.tree_leaves(placed["params"]))
     _assert_bit_equal(_port_leaves(placed), _port_leaves({"params": params}))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):  # placements come as (mesh, specs): test_torch_multidevice.py
         tckpt.restore(str(tmp_path), 1, templates, shardings={"params": {"embed": object()}})
     tckpt.save(str(tmp_path / "bf16"), 1,
                {"params": ttf.tree_map(lambda t: t.to(torch.bfloat16), params)})

@@ -417,8 +417,10 @@ def test_moe_matches_reference(impl, capacity):
 
 
 def test_expert_parallel_mesh_is_refused():
-    """A mesh whose 'model' axis splits the experts is not ported: the
-    port raises instead of quietly running the local path."""
+    """A mesh whose 'model' axis splits the experts, handed plain tensors,
+    is refused: expert parallelism takes DTensors on the mesh (held in
+    ``test_torch_multidevice.py``), and the port raises instead of quietly
+    running the local path."""
     cfg = _cfg("dropping", 2.0)
     params = _moe_params(cfg)
     x = _normal(3, 1, 4, cfg.d_model)
@@ -428,7 +430,7 @@ def test_expert_parallel_mesh_is_refused():
         hook.mesh = types.SimpleNamespace(mesh_dim_names=names, shape=shape)
         return hook
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         tmoe.moe_forward(params, cfg, x, shard=shard_on(("data", "model"), (1, 2)))
     want, _ = tmoe.moe_forward(params, cfg, x)
     for names, shape in ((("data", "model"), (2, 1)), (("data",), (4,)), (("model",), (3,))):

@@ -241,7 +241,7 @@ def test_build_train_step_matches_reference(arch):
 
 def test_build_train_step_refuses_a_mesh():
     cfg = ttrain.train_config("gemma-2b")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):  # a mesh is a DeviceMesh (test_torch_multidevice.py)
         ttrain.build_train_step(cfg, tadamw.AdamWConfig(), object(), tadamw.cosine_schedule(1))
 
 
