@@ -21,12 +21,26 @@ Phases (any failure exits non-zero and prints no result line):
      particles;
   5. the main path: render a 30-frame 128x128 sequence and track it with
      ``Tracker`` at 64 particles x 30 generations from the true first
-     pose; mean position error < 3 cm; K1 launched 31 times and K2 30
-     times per frame, each K2 with the projection fused; per-frame time by
-     CUDA events and its replay through the 30 Hz ``FrameLoop``;
-  6. two frames under torch.profiler: device busy/idle share, device
-     activities a frame, kernel time per frame, and K1's one kernel
-     launched 31 times a frame;
+     pose, its step the whole frame captured into one CUDA graph
+     (``tracker.FrameGraphs``, captured ahead of the clip: warm-up,
+     capture and instantiate timed) and replayed a frame; mean position
+     error < 3 cm; then the eager step
+     (``capture=False``) from a generator seeded alike; for each path the
+     frame time by CUDA events (mean, median, min, max), its replay
+     through the 30 Hz ``FrameLoop`` (fps, drop rate) and the error;
+     whether the generator-drawn frames are bit-equal (reported); then
+     the graph and the eager step on the same draws (made on the card),
+     h and score bit-equal on all 29 frames; last, the ``Tracker`` clip
+     again, bit for bit with its first run, with the counts at 0 and
+     under the profiler, whose kernel records give K1 31 and K2 30 runs
+     on the card a frame (the warm-up's and each replay's) while the
+     wrappers count their launches, the warm-up's and the capture's, each
+     K2 with the projection fused;
+  6. two frames of each path, graph and eager, under torch.profiler:
+     device busy/idle share (of the profiled wall time, and of phase 5's
+     unprofiled median frame), device activities a frame, kernel time per
+     frame, and the profiler's records of K1's kernel (31 a frame) and
+     K2's (30 a frame), on the graph path the graph's nodes;
   7. each kernel timed by CUDA events and profiler device time at the
      main path's shapes, beside its plain version and its bound on the
      card; K1 also on an all-ones mask, each with its kept-pixel count
@@ -106,7 +120,10 @@ Phases (any failure exits non-zero and prints no result line):
      the paper's tiers), the mean position error (< 3 cm on the local
      server runs), processed frames equal to ``analytic_run``'s replay,
      the card's wall time a processed frame by CUDA events, K1 31 and K2
-     30 launches a processed frame; the paper's orderings;
+     30 runs on the card a processed frame and a warm-up, by the
+     profiler's kernel records (each deployment's step is the captured
+     frame: one warm-up and capture a deployment, then its replays);
+     the paper's orderings;
  16. the fleet (``repro_torch.cluster``, host code that launches no
      kernel: the counts are the same before and after it): the codec
      golden config's fleet (fleet_star 3 x 2, 6 clients, 40 frames, the
@@ -160,7 +177,8 @@ Phases (any failure exits non-zero and prints no result line):
      ``sharding.specs``, ``roofline``, ``launch.dryrun``): a one-rank NCCL
      group and ``make_host_mesh()`` on the card; ``make_track_frame_sharded``
      at the main path's width (128x128, 64 x 30) over the clip's first
-     frames on a generator seeded alike, bit-equal to ``make_track_frame``,
+     frames on a generator seeded alike, eager, bit-equal to
+     ``make_track_frame``'s captured frame (the graph),
      K1 31 and K2 30 launches a frame, < 3 cm; the reduced train step over
      the one-rank mesh bit-equal to the meshless step; the op census around
      one full-width gemma-2b decode step and train step at phases 17 and
@@ -172,15 +190,18 @@ Phases (any failure exits non-zero and prints no result line):
      arguments' bytes per device equal to the specs' sum, an all-reduce in
      the train step, one expert-parallel combine a layer in the decode;
  20. one {"kernels": [...]} line with all twelve kernels and the seven
-     one-launch paths (K1's and K2's launches counted over the tracker,
-     the offload grid and the sharded tracker), then the {"ok": ...} line
-     last.
+     one-launch paths (K1's and K2's launches summed over the tracker,
+     the offload grid and the sharded tracker: on the first two, whose
+     steps are graphs, the runs on the card in the profiler's records),
+     then the {"ok": ...} line last.
 
 Each path (the tracker, the uplink, the quantized uplink with its
 entropy stage, the batched step, the offload grid, the sharded tracker)
 runs with the launch counts set to 0
 just before it and read just after; a kernel of the path that was not
-launched fails the run.
+launched fails the run.  A wrapper counts the launches it makes, a
+graph's at its capture; the graph's replays are counted from the
+profiler's records of the card's kernels.
 
 Needs one CUDA card and nvcc; there is no CPU fallback.
 """
@@ -206,6 +227,8 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 FRAMES = 30  # rendered; the first is the known start pose, 29 are tracked
+# K1's and K2's kernels as the profiler's records name them
+KERNEL_NAMES = ("render_score_kernel", "pso_update_kernel")
 K1_TOL_RTOL = 2e-5  # plus one silhouette flip: CLAMP_T / |B| + 1e-6
 K2_TOL = 1e-6
 
@@ -433,115 +456,231 @@ def phase_eval_agrees(tracker_mod, hs, frames, truth):
         f"max|err| {err:.3g}")
 
 
-def phase_main_path(torch, tracker_mod, rs, pu, frames, truth, device):
-    cfg = configs()[1]
-    log(f"[main] Tracker: camera {cfg.camera.width}x{cfg.camera.height}, "
-        f"{cfg.pso.num_particles} particles x {cfg.pso.num_generations} generations, "
-        f"{frames.shape[0] - 1} tracked frames")
-    warm = tracker_mod.Tracker(cfg, h0=truth[0], seed=1, device=device)
-    warm.step(frames[1])  # first-use set-up (allocator, constants) outside the counts
-    tracker = tracker_mod.Tracker(cfg, h0=truth[0], seed=0, device=device)
-    torch.cuda.synchronize()
-
-    rs.launches = 0
-    pu.launches = pu.launches_projected = 0
-    frame_ms, errs = [], []
+def _timed_frames(torch, step, frames, h0, draws_of=None, generator=None):
+    """Track frames[1:] with ``step`` from h0, each frame timed by CUDA
+    events; returns [(h, score)] and the times in ms."""
+    h, out, frame_ms = h0, [], []
     for i in range(1, frames.shape[0]):
+        draws = None if draws_of is None else draws_of(i)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        h, score = tracker.step(frames[i])
+        h, score = step(generator, h, frames[i], draws)
         end.record()
         end.synchronize()
         frame_ms.append(start.elapsed_time(end))
-        check(bool(torch.isfinite(h).all()) and score == score, f"frame {i}: non-finite output")
-        errs.append(float(torch.linalg.vector_norm(h[:3] - truth[i][:3])))
-    k1, k2, k2_projected = rs.launches, pu.launches, pu.launches_projected
+        out.append((h, score))
+    return out, frame_ms
 
-    tracked = len(frame_ms)
-    per_frame = 1 + cfg.pso.num_generations
-    mean_err = statistics.fmean(errs)
-    log(f"[main] mean position error {mean_err * 100:.3f} cm (max {max(errs) * 100:.3f} cm)")
-    check(mean_err < 0.03, f"mean position error {mean_err:.4f} m >= 3 cm")
-    log(f"[main] launches: K1 {k1} (expected {tracked * per_frame}), "
-        f"K2 {k2} (expected {tracked * cfg.pso.num_generations}, "
-        f"{cfg.pso.num_generations} a frame), of which with the quaternion projection "
-        f"fused {k2_projected}")
-    check(k1 == tracked * per_frame, "K1 launch count off the main path")
-    check(k2 == tracked * cfg.pso.num_generations, "K2 launch count off the main path")
-    check(k2_projected == k2, "the tracker's K2 launches did not fuse the projection")
-    log(f"[main] frame time by CUDA events: mean {statistics.fmean(frame_ms):.3f} ms, "
-        f"median {statistics.median(frame_ms):.3f} ms, min {min(frame_ms):.3f} ms, "
-        f"max {max(frame_ms):.3f} ms")
 
+def _frame_stats(torch, label, out, frame_ms, truth):
+    """Log a path's frame times and its 30 Hz FrameLoop replay; check its
+    outputs are finite and its mean position error is under 3 cm."""
     from repro_torch.sim import clock
+
+    for i, (h, score) in enumerate(out, start=1):
+        check(bool(torch.isfinite(h).all()) and bool(torch.isfinite(score)),
+              f"{label}: frame {i}: non-finite output")
+    errs = [float(torch.linalg.vector_norm(h[:3] - truth[i][:3]))
+            for i, (h, _) in enumerate(out, start=1)]
+    tracked = len(frame_ms)
     stats = clock.FrameLoop(clock.CAMERA_FPS).run(
         lambda idx, gap: frame_ms[idx % tracked] / 1e3, tracked)
-    log(f"[main] FrameLoop at {clock.CAMERA_FPS:.0f} Hz over {tracked} camera frames: "
-        f"achieved {stats.achieved_fps:.3f} fps, drop rate {stats.drop_rate:.3f}, "
-        f"mean gap {stats.mean_gap:.2f}")
-    return {"k1": k1, "k2": k2}
+    row = {"mean_ms": statistics.fmean(frame_ms), "median_ms": statistics.median(frame_ms),
+           "min_ms": min(frame_ms), "max_ms": max(frame_ms), "fps": stats.achieved_fps,
+           "drop_rate": stats.drop_rate, "mean_err_cm": statistics.fmean(errs) * 100}
+    log(f"[main] {label}: frame time by CUDA events over {tracked} frames: mean "
+        f"{row['mean_ms']:.3f} ms, median {row['median_ms']:.3f} ms, min {row['min_ms']:.3f} ms, "
+        f"max {row['max_ms']:.3f} ms; FrameLoop at {clock.CAMERA_FPS:.0f} Hz: "
+        f"{row['fps']:.3f} fps, drop rate {row['drop_rate']:.3f}, mean gap "
+        f"{stats.mean_gap:.2f}; mean position error {row['mean_err_cm']:.3f} cm "
+        f"(max {max(errs) * 100:.3f} cm)")
+    check(row["mean_err_cm"] < 3.0, f"{label}: mean position error {row['mean_err_cm']:.3f} cm "
+          f">= 3 cm")
+    return row
 
 
-def phase_profile(torch, tracker_mod, frames, truth, device):
+def _cost(cost_ms):
+    return ", ".join(f"{k} {v:.1f} ms" for k, v in cost_ms.items())
+
+
+def phase_main_path(torch, tracker_mod, rs, pu, frames, truth, device):
+    """The main path, ``Tracker`` on the card, whose step is the frame
+    captured into one CUDA graph, captured ahead of the clip and timed by
+    CUDA events; then the eager step from a generator seeded alike; then
+    the graph and the eager step on the same draws, bit for bit over the
+    clip.  Last, the main path again, bit for bit with its first run,
+    with the counts at 0 and under the profiler, whose records of the
+    card's kernels count K1 and K2: 31 and 30 a frame, the warm-up's and
+    each replay's; the wrappers count the launches they made, the
+    warm-up's and the capture's.  Returns the main path's K1 and K2 runs
+    on the card and each path's numbers."""
+    from repro_torch.kernels import _build
+
+    cfg = configs()[1]
+    tracked, gens = frames.shape[0] - 1, cfg.pso.num_generations
+    log(f"[main] Tracker: camera {cfg.camera.width}x{cfg.camera.height}, "
+        f"{cfg.pso.num_particles} particles x {gens} generations, {tracked} tracked frames")
+
+    def run_tracker():
+        tracker = tracker_mod.Tracker(cfg, h0=truth[0], seed=0, device=device)
+        check(isinstance(tracker._step, tracker_mod.FrameGraphs),
+              "Tracker on the card did not build the captured frame")
+        cost = tracker._step.capture(tracker.generator, tracker.h, frames[1])
+        torch.cuda.synchronize()
+        out, frame_ms = [], []
+        for i in range(1, frames.shape[0]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            h, score = tracker.step(frames[i])
+            end.record()
+            end.synchronize()
+            frame_ms.append(start.elapsed_time(end))
+            out.append((h, torch.tensor(score)))
+        return out, frame_ms, cost
+
+    graph_out, graph_ms, cost = run_tracker()
+    log(f"[main] the frame captured into one CUDA graph (generator-drawn): {_cost(cost)}")
+    paths = {"graph": _frame_stats(torch, "graph (Tracker)", graph_out, graph_ms, truth)}
+    paths["graph"]["capture_ms"] = cost
+
+    eager = tracker_mod.make_track_frame(cfg, device, capture=False)
+    eager(torch.Generator(device=device).manual_seed(1), truth[0], frames[1])  # first use
+    torch.cuda.synchronize()
+    eager_out, eager_ms = _timed_frames(torch, eager, frames, truth[0],
+                                        generator=torch.Generator(device=device).manual_seed(0))
+    paths["eager"] = _frame_stats(torch, "eager", eager_out, eager_ms, truth)
+    same = sum(torch.equal(h, he) and float(s) == float(se)
+               for (h, s), (he, se) in zip(graph_out, eager_out))
+    log(f"[main] generator-drawn from equal seeds, graph vs eager: h and score bit-equal on "
+        f"{same} of {tracked} frames (reported)")
+    speedup = paths["eager"]["median_ms"] / paths["graph"]["median_ms"]
+    log(f"[main] median frame, eager over graph: {speedup:.2f}x")
+
+    # the same draws fed to both: one (frames, 1 + G, 2, N, D) tensor on the card
+    n = cfg.pso.num_particles
+    u = torch.rand((frames.shape[0], 1 + gens, 2, n, 27), device=device,
+                   generator=torch.Generator(device=device).manual_seed(3))
+
+    def draws_of(i):
+        return (u[i, 0, 0], u[i, 0, 1]), [(u[i, g, 0], u[i, g, 1]) for g in range(1, 1 + gens)]
+
+    graph = tracker_mod.make_track_frame(cfg, device)
+    cost = graph.capture(None, truth[0], frames[1], draws_of(1))
+    log(f"[main] the frame captured into one CUDA graph (draws given): {_cost(cost)}")
+    g_out, g_ms = _timed_frames(torch, graph, frames, truth[0], draws_of)
+    e_out, e_ms = _timed_frames(torch, eager, frames, truth[0], draws_of)
+    differ = [i for i, ((h, s), (he, se)) in enumerate(zip(g_out, e_out), start=1)
+              if not (torch.equal(h, he) and torch.equal(s, se))]
+    log(f"[main] the same draws fed to both: h and score bit-equal on "
+        f"{tracked - len(differ)} of {tracked} frames; median frame {statistics.median(g_ms):.3f} "
+        f"ms graph (with its 0.44 MB draw copy), {statistics.median(e_ms):.3f} ms eager")
+    check(not differ, f"the graph differs from the eager step on the same draws at frames "
+          f"{differ}")
+    _frame_stats(torch, "graph, draws given", g_out, g_ms, truth)
+    _frame_stats(torch, "eager, draws given", e_out, e_ms, truth)
+
+    # the counted run comes last: no timed run follows the profiler
+    torch.cuda.synchronize()
+    rs.launches = 0
+    pu.launches = pu.launches_projected = 0
+    (counted_out, counted_ms, _), runs = _build.kernel_runs(run_tracker, KERNEL_NAMES)
+    wrapped = (rs.launches, pu.launches, pu.launches_projected)
+    k1, k2 = runs[KERNEL_NAMES[0]], runs[KERNEL_NAMES[1]]
+    log(f"[main] the profiled run: the card ran K1 {k1} times (expected {(1 + tracked) * (1 + gens)}"
+        f": {1 + gens} a frame, the warm-up's and {tracked} replays') and K2 {k2} times "
+        f"(expected {(1 + tracked) * gens}), by the profiler's kernel records; the wrappers "
+        f"launched K1 {wrapped[0]} and K2 {wrapped[1]} times, {wrapped[2]} with the quaternion "
+        f"projection fused (expected {2 * (1 + gens)} and {2 * gens}: the warm-up's and the "
+        f"capture's); its median frame {statistics.median(counted_ms):.3f} ms by CUDA events "
+        f"under the profiler")
+    check(k1 == (1 + tracked) * (1 + gens), "K1 runs on the card off the main path")
+    check(k2 == (1 + tracked) * gens, "K2 runs on the card off the main path")
+    check(wrapped == (2 * (1 + gens), 2 * gens, 2 * gens),
+          f"the main path's wrappers launched K1, K2 and K2 projected {wrapped} times")
+
+    differ = [i for i, ((h, s), (hc, sc)) in enumerate(zip(graph_out, counted_out), start=1)
+              if not (torch.equal(h, hc) and torch.equal(s, sc))]
+    check(not differ, f"the profiled run differs from the timed run at frames {differ}")
+    return {"k1": k1, "k2": k2}, paths
+
+
+def phase_profile(torch, tracker_mod, frames, truth, device, paths):
+    """Two frames of each path under torch.profiler: device busy and idle
+    share, device activities, and K1's and K2's kernels a frame from the
+    profiler's records (31 and 30: on the graph path the graph's nodes,
+    which the wrappers do not see at a replay).  The profiler
+    slows the host, so the idle share is given twice: against the
+    profiled wall time, and against phase 5's unprofiled median frame by
+    CUDA events (``paths``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    tracker = tracker_mod.Tracker(configs()[1], h0=truth[0], seed=2, device=device)
-    tracker.step(frames[1])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in (2, 3):
-            tracker.step(frames[i])
+    cfg = configs()[1]
+    out = {}
+    for label in ("graph", "eager"):
+        step = tracker_mod.make_track_frame(cfg, device, capture=label == "graph")
+        gen = torch.Generator(device=device).manual_seed(2)
+        step(gen, truth[0], frames[1])
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:
-        log("[profile] the profiler recorded no device activity: busy share not measured")
-        return None
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    by = {"K1": 0.0, "K2": 0.0, "other": 0.0}
-    count = {"K1": 0, "K2": 0}
-    for e in events:
-        dur = e.time_range.end - e.time_range.start
-        key = ("K1" if "render_score_kernel" in e.name else
-               "K2" if "pso_update_kernel" in e.name else "other")
-        by[key] += dur
-        if key in count:
-            count[key] += 1
-    out = {
-        "frame_ms": wall_us / 2 / 1e3,
-        "busy_ms": busy / 2 / 1e3,
-        "idle_share": 1.0 - busy / wall_us,
-        "activities_per_frame": len(events) / 2,
-        "k1_ms": by["K1"] / 2 / 1e3,
-        "k2_ms": by["K2"] / 2 / 1e3,
-        "other_ms": by["other"] / 2 / 1e3,
-        "k1_device_ms_per_launch": by["K1"] / max(count["K1"], 1) / 1e3,
-        "k2_device_ms_per_launch": by["K2"] / max(count["K2"], 1) / 1e3,
-        "k1_kernels_per_frame": count["K1"] / 2,
-    }
-    log(f"[profile] per frame: wall {out['frame_ms']:.3f} ms, device busy "
-        f"{out['busy_ms']:.3f} ms (idle {out['idle_share'] * 100:.1f}%), "
-        f"{out['activities_per_frame']:.0f} device activities (6,232 before the "
-        f"projection was fused into K2); K1 {out['k1_ms']:.3f} ms, "
-        f"K2 {out['k2_ms']:.3f} ms, other kernels/copies {out['other_ms']:.3f} ms")
-    log(f"[profile] device time per launch: K1 {out['k1_device_ms_per_launch'] * 1e3:.2f} us "
-        f"(on the frames' own masks), K2 {out['k2_device_ms_per_launch'] * 1e3:.2f} us; "
-        f"{out['k1_kernels_per_frame']:.0f} render_score kernels a frame")
-    per_frame = 1 + configs()[1].pso.num_generations
-    check(out["k1_kernels_per_frame"] == per_frame,
-          f"{out['k1_kernels_per_frame']} render_score kernels a frame, expected {per_frame}: "
-          f"one kernel per evaluation")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            h = truth[1]
+            for i in (2, 3):
+                h, _ = step(gen, h, frames[i])
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        check(bool(events), f"[profile] {label}: the profiler recorded no device activity")
+        spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+        busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+        for s, e in spans[1:]:
+            if s > cur_e:
+                busy += cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        busy += cur_e - cur_s
+        by = {"K1": 0.0, "K2": 0.0, "other": 0.0}
+        count = {"K1": 0, "K2": 0}
+        for e in events:
+            dur = e.time_range.end - e.time_range.start
+            key = ("K1" if KERNEL_NAMES[0] in e.name else
+                   "K2" if KERNEL_NAMES[1] in e.name else "other")
+            by[key] += dur
+            if key in count:
+                count[key] += 1
+        row = {
+            "frame_ms": wall_us / 2 / 1e3,
+            "busy_ms": busy / 2 / 1e3,
+            "idle_share": 1.0 - busy / wall_us,
+            "idle_share_vs_events": 1.0 - busy / 2 / 1e3 / paths[label]["median_ms"],
+            "activities_per_frame": len(events) / 2,
+            "k1_ms": by["K1"] / 2 / 1e3,
+            "k2_ms": by["K2"] / 2 / 1e3,
+            "other_ms": by["other"] / 2 / 1e3,
+            "k1_device_ms_per_launch": by["K1"] / max(count["K1"], 1) / 1e3,
+            "k2_device_ms_per_launch": by["K2"] / max(count["K2"], 1) / 1e3,
+            "k1_kernels_per_frame": count["K1"] / 2,
+            "k2_kernels_per_frame": count["K2"] / 2,
+        }
+        log(f"[profile] {label}, per frame: wall {row['frame_ms']:.3f} ms, device busy "
+            f"{row['busy_ms']:.3f} ms (idle {row['idle_share'] * 100:.1f}% of the profiled "
+            f"wall, {row['idle_share_vs_events'] * 100:.1f}% of phase 5's median frame "
+            f"{paths[label]['median_ms']:.3f} ms), "
+            f"{row['activities_per_frame']:.0f} device activities; K1 {row['k1_ms']:.3f} ms, "
+            f"K2 {row['k2_ms']:.3f} ms, other kernels/copies {row['other_ms']:.3f} ms")
+        log(f"[profile] {label}, device time per launch: K1 "
+            f"{row['k1_device_ms_per_launch'] * 1e3:.2f} us (on the frames' own masks), K2 "
+            f"{row['k2_device_ms_per_launch'] * 1e3:.2f} us; {row['k1_kernels_per_frame']:.0f} "
+            f"render_score and {row['k2_kernels_per_frame']:.0f} pso_update kernels a frame")
+        gens = cfg.pso.num_generations
+        check(row["k1_kernels_per_frame"] == 1 + gens and row["k2_kernels_per_frame"] == gens,
+              f"{label}: {row['k1_kernels_per_frame']} render_score and "
+              f"{row['k2_kernels_per_frame']} pso_update kernels a frame in the profiler's "
+              f"records, expected {1 + gens} and {gens}")
+        out[label] = row
     return out
 
 
@@ -1800,13 +1939,16 @@ def phase_offload(torch, rs, pu, device, card):
     ``hardware.PAPER_TRACKER_CFG`` on a ``Camera()`` clip with the
     example's fast burst, the clock charged with ``paper_staged()``.
     Each deployment processes the frames ``analytic_run`` replays for the
-    same plan and seed, and launches K1 31 and K2 30 times a processed
-    frame; the local server runs track to < 3 cm; the paper's orderings
-    hold.  Returns the grid's K1 and K2 launches and each deployment's
-    processed frame indices."""
+    same plan and seed, and its step, the frame captured into a CUDA
+    graph, runs K1 31 and K2 30 times on the card a processed frame and
+    once more in its warm-up (the profiler's kernel records); the local
+    server runs track to < 3 cm; the paper's orderings hold.  Returns the
+    grid's K1 and K2 runs on the card and each deployment's processed
+    frame indices."""
     from repro_torch.core import wrapper
     from repro_torch.data import rgbd
     from repro_torch.examples import edge_offload_serve as serve
+    from repro_torch.kernels import _build
     from repro_torch.sim import hardware, runtime
 
     fit, paper = wrapper.measure_wrapper(device=device), wrapper.paper_wrapper()
@@ -1833,17 +1975,20 @@ def phase_offload(torch, rs, pu, device, card):
     torch.cuda.synchronize()
     rs.launches = 0
     pu.launches = pu.launches_projected = 0
-    processed_total, tracked = 0, {}
+    processed_total, tracked, grid = 0, {}, {"k1": 0, "k2": 0}
     for name, env, policy, gran in serve.deployments():
-        k1, k2 = rs.launches, pu.launches
+        wrapped = (rs.launches, pu.launches)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        res = runtime.executed_run(cfg, env, policy, frames, truth, gran, seed=0,
-                                   timing_comp=comp, device=device)
+        res, runs = _build.kernel_runs(
+            lambda: runtime.executed_run(cfg, env, policy, frames, truth, gran, seed=0,
+                                         timing_comp=comp, device=device), KERNEL_NAMES)
         end.record()
         end.synchronize()
-        k1, k2 = rs.launches - k1, pu.launches - k2
+        k1, k2 = runs[KERNEL_NAMES[0]], runs[KERNEL_NAMES[1]]
+        wrapped = (rs.launches - wrapped[0], pu.launches - wrapped[1])
+        grid["k1"], grid["k2"] = grid["k1"] + k1, grid["k2"] + k2
         processed = [e.index for e in res.sim.stats.processed]
         replay = runtime.analytic_run(comp, env, policy, gran, GRID_FRAMES, seed=0)
         n = len(processed)
@@ -1852,13 +1997,21 @@ def phase_offload(torch, rs, pu, device, card):
         log(f"[offload] {name:44s} simulated {res.sim.fps:6.2f} fps, drop rate "
             f"{res.sim.stats.drop_rate:.3f}; processed {n:2d}; mean position error "
             f"{res.mean_pos_error * 100:.3f} cm (lost {res.track_lost_frames}); wall "
-            f"{start.elapsed_time(end) / max(n, 1):.3f} ms a processed frame by CUDA events; "
-            f"K1 {k1}, K2 {k2}")
+            f"{start.elapsed_time(end) / max(n, 1):.3f} ms a processed frame by CUDA events, "
+            f"under the profiler; on the card K1 {k1}, K2 {k2}, by the wrappers K1 "
+            f"{wrapped[0]}, K2 {wrapped[1]}")
         check(processed == [e.index for e in replay.stats.processed],
               f"{name}: processed frames {processed} differ from analytic_run's replay")
-        check((k1, k2) == (per_frame[0] * n, per_frame[1] * n),
-              f"{name}: K1 {k1} and K2 {k2} launches for {n} processed frames, expected "
-              f"{per_frame[0]} and {per_frame[1]} a frame")
+        # one graph a deployment: the warm-up and each processed frame's
+        # replay run the frame on the card; the wrappers launch the
+        # warm-up's kernels and the capture's
+        runs_expected = [(n + 1) * k if n else 0 for k in per_frame]
+        check([k1, k2] == runs_expected,
+              f"{name}: the card ran K1 {k1} and K2 {k2} times for {n} processed frames, "
+              f"expected {runs_expected}: {per_frame[0]} and {per_frame[1]} a frame and the "
+              f"warm-up's")
+        check(list(wrapped) == [2 * k if n else 0 for k in per_frame],
+              f"{name}: the wrappers launched K1 {wrapped[0]} and K2 {wrapped[1]} times")
         check(res.mean_pos_error == res.mean_pos_error, f"{name}: no position error")
         if name.startswith("local/server/"):
             check(res.mean_pos_error < 0.03,
@@ -1870,9 +2023,12 @@ def phase_offload(torch, rs, pu, device, card):
         f"{sum(claims.values())} of {len(claims)} hold")
     check(all(claims.values()), f"paper orderings that fail: "
           f"{[k for k, ok in claims.items() if not ok]}")
-    log(f"[offload] launches over the grid: K1 {rs.launches}, K2 {pu.launches} for "
-        f"{processed_total} processed frames")
-    return {"k1": rs.launches, "k2": pu.launches, "processed": tracked}
+    deployed = sum(1 for processed in tracked.values() if processed)
+    log(f"[offload] over the grid: the card ran K1 {grid['k1']} and K2 {grid['k2']} times for "
+        f"{processed_total} processed frames and {deployed} warm-ups, of which "
+        f"{grid['k1'] - deployed * per_frame[0]} and {grid['k2'] - deployed * per_frame[1]} in "
+        f"the replays; the wrappers launched K1 {rs.launches} and K2 {pu.launches} times")
+    return {**grid, "processed": tracked}
 
 
 # ---------------------------------------------------------------------------
@@ -2741,11 +2897,13 @@ def phase_mesh(torch, tracker_mod, rs, pu, frames, truth, card, timed):
         f"{cfg.camera.height}, {cfg.pso.num_particles} particles x {cfg.pso.num_generations} "
         f"generations, {tracked} frames on {card}: K1 {k1} and K2 {k2} launches (expected "
         f"{tracked * (1 + cfg.pso.num_generations)} and {tracked * cfg.pso.num_generations}, "
-        f"{k2_projected} with the projection fused); h and score bit-equal to make_track_frame "
-        f"on the same draws on {tracked - len(differ)} of {tracked} frames; mean position "
+        f"{k2_projected} with the projection fused); h and score of the eager sharded frame "
+        f"bit-equal to make_track_frame's captured frame (the graph) on the same draws on "
+        f"{tracked - len(differ)} of {tracked} frames; mean position "
         f"error {mean_err * 100:.3f} cm; frame time by CUDA events: median "
-        f"{statistics.median(sharded_ms):.3f} ms sharded, {statistics.median(local_ms):.3f} ms "
-        f"unsharded")
+        f"{statistics.median(sharded_ms):.3f} ms sharded (eager), "
+        f"{statistics.median(local_ms):.3f} ms unsharded (the graph, its capture in the first "
+        f"frame)")
     check(not differ, f"the sharded tracker differs from make_track_frame at frames {differ}")
     check(k1 == tracked * (1 + cfg.pso.num_generations)
           and k2 == k2_projected == tracked * cfg.pso.num_generations,
@@ -2962,8 +3120,10 @@ def main() -> int:
     k2_err = phase_k2(torch, pu, device)
     phase_eval_agrees(tracker_mod, _particles(torch, hm, truth[0], 16, device, seed=4),
                       frames, truth)
-    launches = phase_main_path(torch, tracker_mod, rs, pu, frames, truth, device)
-    phase_profile(torch, tracker_mod, frames, truth, device)
+    launches, paths = phase_main_path(torch, tracker_mod, rs, pu, frames, truth, device)
+    profiled = phase_profile(torch, tracker_mod, frames, truth, device, paths)
+    log("[frame] " + json.dumps({label: {**paths[label], "profile": profiled[label]}
+                                 for label in ("graph", "eager")}))
     kernels = phase_timing(torch, rs, pu, inputs, device, k1_err, k2_err, launches)
 
     for key in ck.launches:

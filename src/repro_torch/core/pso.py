@@ -17,7 +17,11 @@ for the host.
 Randomness: the uniform draws come from a ``torch.Generator`` on the
 run's device, or from a ``draws`` argument — the parity tests feed the
 reference's own ``jax.random`` draws through it, since torch cannot
-reproduce JAX's threefry streams.
+reproduce JAX's threefry streams.  Both ways run inside a CUDA graph
+(``core.tracker.FrameGraphs``): a generator registered with the graph
+advances at each replay as it would eagerly, and ``_as_draw`` reads a
+draw that is already a float32 tensor on the device in place, so a
+graph's static draw buffers are read without a copy.
 """
 
 from __future__ import annotations
@@ -81,6 +85,7 @@ def _uniform(shape, like: torch.Tensor, generator: Optional[torch.Generator]):
 
 
 def _as_draw(u, like: torch.Tensor) -> torch.Tensor:
+    """u as a tensor like ``like``: u itself when it already is one."""
     return torch.as_tensor(u, dtype=like.dtype, device=like.device)
 
 

@@ -16,15 +16,26 @@ The serial frame dependency (Fig. 3 category A) lives *outside* this
 module: ``track_frame`` maps (h_t, frame) -> h_{t+1}, and whoever drives
 it must wait for each frame's result before submitting the next.
 
-PyTorch runs eagerly, so the generations are a Python loop.  Nothing in
-it reads a device value on the host: the frame's one synchronization is
-``Tracker.step`` reading the score at the end.
+The frame is one function of device tensors, ``_frame``, and runs two
+ways.  Eagerly it is a Python loop of ops, dispatched one by one: the
+CPU's path, and on the card the yardstick the graph is held to
+(``make_track_frame(..., capture=False)``).  On the card,
+``make_track_frame`` by default builds the frame once and runs it as one
+device program a call, as the reference's ``@jax.jit`` frame does: the
+first call captures the whole frame (mask, spawn, every generation's K1
+and K2, refine) into one ``torch.cuda.CUDAGraph``, and every call copies
+its inputs into the graph's static buffers and replays it.  Nothing in
+the frame reads a device value on the host or makes a shape that depends
+on one, which is what lets it be captured; the frame's one
+synchronization is ``Tracker.step`` reading the score at the end.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence, Tuple
+import math
+import time
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -130,14 +141,29 @@ def stage_refine(
 
 
 def make_track_frame(
-    cfg: TrackerConfig, device: torch.device | str = "cuda"
+    cfg: TrackerConfig, device: torch.device | str = "cuda",
+    capture: Optional[bool] = None,
 ) -> Callable:
     """Build the (generator, h_prev, depth) -> (h_next, score) step on
     ``device``.  ``generator`` is a ``torch.Generator`` on that device;
     h_prev and depth may be tensors or arrays, and are moved there.  The
     step's ``draws`` = (spawn draws, one entry a generation) replaces the
-    generator's draws: the parity tests feed the reference's through it."""
-    return _track_frame_fn(cfg, torch.device(device), lambda eval_fn: eval_fn)
+    generator's draws: the parity tests feed the reference's through it.
+
+    ``capture=None`` captures the frame into a CUDA graph on a CUDA
+    device and runs it eagerly on the CPU; ``capture=True`` asks for the
+    graph (a ``ValueError`` on the CPU), ``capture=False`` for the eager
+    step on any device.  The graph and the eager step give the same bits
+    on the same draws (``FrameGraphs`` says what the graph asks of its
+    callers)."""
+    device = torch.device(device)
+    if capture is None:
+        capture = device.type == "cuda"
+    if not capture:
+        return _track_frame_fn(cfg, device, lambda eval_fn: eval_fn)
+    if device.type != "cuda":
+        raise ValueError(f"capture=True needs a CUDA device, not {device}")
+    return FrameGraphs(cfg, device)
 
 
 def make_track_frame_sharded(
@@ -148,23 +174,180 @@ def make_track_frame_sharded(
     devices) through ``pso.sharded_eval``.  Every rank runs the same step
     on the same frame and draws (a generator seeded alike on each rank, or
     ``draws``), so the swarm stays replicated; the scores' all-gather is
-    the step's one collective."""
+    the step's one collective.  It runs eagerly."""
     return _track_frame_fn(cfg, torch.device(device),
                            lambda eval_fn: pso.sharded_eval(eval_fn, mesh, axis))
+
+
+def _frame(cfg: TrackerConfig, wrap_eval, generator: Optional[torch.Generator],
+           h_prev: torch.Tensor, depth: torch.Tensor, draws=None):
+    """One frame on device tensors: the body that the eager step runs and
+    that the graph captures."""
+    d_o, mask = stage_preprocess(cfg, h_prev, depth)
+    eval_fn = wrap_eval(_make_eval_fn(cfg, d_o, mask))
+    spawn, gens = (None, None) if draws is None else draws
+    state, lo, hi = stage_spawn(cfg, generator, h_prev, eval_fn, spawn)
+    state = stage_optimize(cfg, state, lo, hi, eval_fn, generator, gens)
+    return stage_refine(cfg, state, h_prev)
 
 
 def _track_frame_fn(cfg: TrackerConfig, device: torch.device, wrap_eval) -> Callable:
     def track_frame(generator: Optional[torch.Generator], h_prev, depth, draws=None):
         h_prev = torch.as_tensor(h_prev, dtype=torch.float32, device=device)
         depth = torch.as_tensor(depth, dtype=torch.float32, device=device)
-        d_o, mask = stage_preprocess(cfg, h_prev, depth)
-        eval_fn = wrap_eval(_make_eval_fn(cfg, d_o, mask))
-        spawn, gens = (None, None) if draws is None else draws
-        state, lo, hi = stage_spawn(cfg, generator, h_prev, eval_fn, spawn)
-        state = stage_optimize(cfg, state, lo, hi, eval_fn, generator, gens)
-        return stage_refine(cfg, state, h_prev)
+        return _frame(cfg, wrap_eval, generator, h_prev, depth, draws)
 
     return track_frame
+
+
+# ---------------------------------------------------------------------------
+# The frame as one CUDA graph
+# ---------------------------------------------------------------------------
+
+def _draw_layout(draws) -> Tuple:
+    """The shapes of ``draws`` = (spawn draws, one entry a generation)."""
+    spawn, gens = draws
+    return (tuple(tuple(u.shape) for u in spawn),
+            tuple(tuple(tuple(u.shape) for u in g) for g in gens))
+
+
+class FrameInputs:
+    """A frame's static inputs on ``device``: h_prev (27,), the depth map
+    and, when the frame is given its draws, every draw in one flat buffer
+    that the frame reads through views.  ``load`` copies a call's inputs
+    into them in place; ``run`` runs the frame on them."""
+
+    def __init__(self, cfg: TrackerConfig, device: torch.device,
+                 depth_shape: Sequence[int], draws=None):
+        self.cfg = cfg
+        self.h_prev = torch.zeros(handmodel.NUM_PARAMS, dtype=torch.float32, device=device)
+        self.depth = torch.zeros(tuple(depth_shape), dtype=torch.float32, device=device)
+        self.layout = None if draws is None else _draw_layout(draws)
+        self.draws = None
+        if self.layout is not None:
+            spawn, gens = self.layout
+            shapes = [*spawn, *(s for g in gens for s in g)]
+            sizes = [math.prod(s) for s in shapes]
+            self.flat = torch.zeros(sum(sizes), dtype=torch.float32, device=device)
+            views = iter([v.view(s) for v, s in zip(self.flat.split(sizes), shapes)])
+            self.draws = (tuple(next(views) for _ in spawn),
+                          [tuple(next(views) for _ in g) for g in gens])
+
+    def load(self, h_prev, depth, draws=None) -> None:
+        """Copy a call's inputs into the buffers.  Raises ``ValueError``
+        on a shape other than the buffers'."""
+        h_prev = torch.as_tensor(h_prev, dtype=torch.float32)
+        depth = torch.as_tensor(depth, dtype=torch.float32)
+        if tuple(h_prev.shape) != tuple(self.h_prev.shape):
+            raise ValueError(f"h_prev has shape {tuple(h_prev.shape)}, expected "
+                             f"{tuple(self.h_prev.shape)}")
+        if depth.shape != self.depth.shape:
+            raise ValueError(f"depth has shape {tuple(depth.shape)}; this frame was "
+                             f"built for {tuple(self.depth.shape)}")
+        if (draws is None) != (self.layout is None):
+            raise ValueError("this frame was built to draw from the generator" if draws
+                             is not None else "this frame was built to be given its draws")
+        self.h_prev.copy_(h_prev)
+        self.depth.copy_(depth)
+        if draws is not None:
+            if _draw_layout(draws) != self.layout:
+                raise ValueError(f"draws of shapes {_draw_layout(draws)}; this frame was "
+                                 f"built for {self.layout}")
+            spawn, gens = draws
+            self.flat.copy_(torch.cat([
+                torch.as_tensor(u, dtype=torch.float32, device=self.flat.device).reshape(-1)
+                for u in [*spawn, *(u for g in gens for u in g)]]))
+
+    def run(self, generator: Optional[torch.Generator]):
+        """The frame on the buffers: (h_next, score)."""
+        return _frame(self.cfg, lambda eval_fn: eval_fn, generator, self.h_prev,
+                      self.depth, self.draws)
+
+
+class _FrameGraph:
+    """One frame captured into a CUDA graph, for one mode: drawn from
+    ``generator``, or given its draws (``generator`` None)."""
+
+    def __init__(self, cfg: TrackerConfig, device: torch.device,
+                 generator: Optional[torch.Generator], h_prev, depth, draws):
+        depth = torch.as_tensor(depth)
+        self.generator = generator if draws is None else None
+        self.inputs = FrameInputs(cfg, device, depth.shape, draws)
+        self.inputs.load(h_prev, depth, draws)
+        # Warm-up, eagerly on a side stream: builds and loads the kernel
+        # library, the hand geometry's constants and the allocator's
+        # blocks, none of which may happen inside the capture.  It draws
+        # from a generator of its own, so the caller's does not move.
+        t0 = time.perf_counter()
+        warm_gen = (None if draws is not None
+                    else torch.Generator(device=device).manual_seed(0))
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            self.inputs.run(warm_gen)
+        torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        if draws is None and generator is not None:  # the default one registers itself
+            self.graph.register_generator_state(generator)
+        with torch.cuda.graph(self.graph):
+            self.h_next, self.score = self.inputs.run(generator)
+        t2 = time.perf_counter()
+        self.graph.instantiate()
+        torch.cuda.synchronize(device)
+        t3 = time.perf_counter()
+        self.cost_ms = {"warmup": (t1 - t0) * 1e3, "capture": (t2 - t1) * 1e3,
+                        "instantiate": (t3 - t2) * 1e3}
+
+    def __call__(self, generator, h_prev, depth, draws):
+        if draws is None and generator is not self.generator:
+            raise ValueError("this frame's graph draws from the generator it was captured "
+                             "with; build another step for another generator")
+        self.inputs.load(h_prev, depth, draws)
+        self.graph.replay()
+        return self.h_next.clone(), self.score.clone()
+
+
+class FrameGraphs:
+    """The frame as one CUDA graph a call: the counterpart of the
+    reference's ``@jax.jit`` ``track_frame``, with its call signature.
+
+    One graph draws from a generator, another is given its draws; each is
+    captured at its first use, or ahead of it by ``capture``.  A graph is
+    tied to what it captured: a depth or draws of another shape, or
+    another generator, raises ``ValueError`` (it is never recaptured
+    silently).  A failed capture or replay raises CUDA's error.  Each
+    call returns fresh tensors, which no later replay overwrites.
+
+    The kernel wrappers count a graph's launches where they make them: in
+    the warm-up, which runs the frame eagerly, and once more in the
+    capture.  A replay runs the graph's K1 and K2 nodes (N + 1 and N a
+    frame of N generations) without the wrappers, so the card's own
+    records count them (the profiler's, as ``chip_smoke.py`` does).
+    ``capture`` returns a graph's one-time cost: warm-up, capture and
+    instantiate, in ms of host time."""
+
+    def __init__(self, cfg: TrackerConfig, device: torch.device):
+        self.cfg, self.device = cfg, device
+        self._graphs: Dict[bool, _FrameGraph] = {}
+
+    def capture(self, generator: Optional[torch.Generator], h_prev, depth,
+                draws=None) -> Dict[str, float]:
+        """Capture the graph of this call's mode without running a frame
+        (the generator does not move); returns its one-time cost."""
+        given = draws is not None
+        if given in self._graphs:
+            raise ValueError("this mode's graph is captured already")
+        self._graphs[given] = _FrameGraph(self.cfg, self.device, generator, h_prev, depth,
+                                          draws)
+        return self._graphs[given].cost_ms
+
+    def __call__(self, generator: Optional[torch.Generator], h_prev, depth, draws=None):
+        given = draws is not None
+        if given not in self._graphs:
+            self.capture(generator, h_prev, depth, draws)
+        return self._graphs[given](generator, h_prev, depth, draws)
 
 
 class Tracker:

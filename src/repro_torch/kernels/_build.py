@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels with ``nvcc`` and bind them with ctypes.
+"""Build the port's CUDA kernels with ``nvcc``, bind them with ctypes, and
+count their runs on the card (``kernel_runs``).
 
 Every ``csrc/*.cu`` is compiled for Hopper (``sm_90a``) by its own
 ``nvcc`` process, all started together, and the objects are linked into
@@ -154,3 +155,24 @@ def kernel_input(name: str, t: torch.Tensor, device: torch.device) -> torch.Tens
     if not t.is_floating_point():
         raise TypeError(f"{name} has dtype {t.dtype}, expected a float tensor")
     return t.to(torch.float32).contiguous()
+
+
+def kernel_runs(fn, names):
+    """Call ``fn()`` under ``torch.profiler`` and count, from the card's
+    own records, the kernels it ran whose names hold each of ``names``:
+    eager launches and a CUDA graph's replays alike (a wrapper's count
+    sees a graph's launches only at its capture).  Returns (fn's result,
+    {name: runs})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    runs = dict.fromkeys(names, 0)
+    # the raw records: a clip's graph replays make 1e5 of them
+    for event in prof.profiler.kineto_results.events():
+        if event.device_type() == DeviceType.CUDA:
+            for name in names:
+                runs[name] += name in event.name()
+    return out, runs

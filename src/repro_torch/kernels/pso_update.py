@@ -39,7 +39,9 @@ from repro_torch.kernels.pso_ref import (
 # Launches of the CUDA kernel since the count was last set to 0: by
 # pso_update and pso_update_projected (K2), by the grid paths of
 # pso_update_batched and pso_update_projected_batched (K2b), and, of
-# those, the launches with the quaternion projection.
+# those, the launches with the quaternion projection.  A launch made
+# while a CUDA graph captures counts once, here; the graph's replays run
+# it without the wrapper (``core.tracker.FrameGraphs``).
 launches = 0
 launches_batched = 0
 launches_projected = 0

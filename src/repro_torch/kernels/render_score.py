@@ -36,7 +36,9 @@ from repro_torch.kernels.ref import (
 )
 
 # Launches of the CUDA kernel since the count was last set to 0: by
-# render_score_sums (K1) and by render_score_sums_batched (K1b).
+# render_score_sums (K1) and by render_score_sums_batched (K1b).  A
+# launch made while a CUDA graph captures counts once, here; the graph's
+# replays run it without the wrapper (``core.tracker.FrameGraphs``).
 launches = 0
 launches_batched = 0
 

@@ -910,8 +910,11 @@ def test_offload_path_on_the_card_launches_k1_and_k2(cuda):
     positive call overhead and staging bandwidth from pinned round trips,
     and one deployment of the paper's grid (the laptop, native: it drops
     frames) through ``executed_run`` at a small size processes the frames
-    ``analytic_run`` replays for the same plan and seed, launching K1 31
-    and K2 30 times (with the projection fused) a processed frame."""
+    ``analytic_run`` replays for the same plan and seed.  Its step, the
+    frame captured into a CUDA graph, runs K1 31 and K2 30 times on the
+    card a processed frame and once more in its warm-up, by the
+    profiler's kernel records; the wrappers launch them in the warm-up
+    and the capture (K2 with the projection fused)."""
     from repro_torch.core import pso, tracker, wrapper
     from repro_torch.data import rgbd
     from repro_torch.examples import edge_offload_serve as serve
@@ -930,13 +933,15 @@ def test_offload_path_on_the_card_launches_k1_and_k2(cuda):
     assert name == "local/laptop/native"
     rs.launches = 0
     pu.launches = pu.launches_projected = 0
-    res = runtime.executed_run(cfg, env, policy, frames, truth, gran, timing_comp=comp,
-                               device=cuda)
+    res, runs = _build.kernel_runs(
+        lambda: runtime.executed_run(cfg, env, policy, frames, truth, gran, timing_comp=comp,
+                                     device=cuda), ("render_score_kernel", "pso_update_kernel"))
     n = len(res.sim.stats.processed)
     replay = runtime.analytic_run(comp, env, policy, gran, 12, seed=0)
     assert 0 < n < 12
     assert [e.index for e in res.sim.stats.processed] == [e.index for e in replay.stats.processed]
-    assert (rs.launches, pu.launches, pu.launches_projected) == (31 * n, 30 * n, 30 * n)
+    assert runs == {"render_score_kernel": 31 * (n + 1), "pso_update_kernel": 30 * (n + 1)}
+    assert (rs.launches, pu.launches, pu.launches_projected) == (62, 60, 60)
     assert np.isfinite(res.mean_pos_error)
 
 

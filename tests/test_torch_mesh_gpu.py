@@ -8,8 +8,8 @@ machine runs it:
 Elsewhere the tests skip with that reason.  Held, as phase 19 of
 ``chip_smoke.py`` holds them at full width: ``make_host_mesh()`` on the
 card; the sharded tracker bit-equal to the unsharded step on the same
-draws, with K1 and K2 launched as on the main path (N + 1 and N
-generations a frame); the reduced train step over the one-rank mesh
+draws, with K1 and K2 run on the card as on the main path (N + 1 and N
+a frame of N generations, by the profiler's kernel records); the reduced train step over the one-rank mesh
 bit-equal to the meshless step.  The 2-rank checks against the reference
 run on the CPU in ``tests/test_torch_multidevice.py``.
 """
@@ -21,6 +21,7 @@ from repro_torch.core import pso, tracker
 from repro_torch.core.camera import Camera
 from repro_torch.data import rgbd
 from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+from repro_torch.kernels import _build
 from repro_torch.kernels import pso_update as pu
 from repro_torch.kernels import render_score as rs
 from repro_torch.launch import mesh as lmesh
@@ -62,20 +63,31 @@ def test_sharded_tracker_on_the_card_equals_unsharded(mesh):
                                                               num_generations=10))
     steps = {"sharded": tracker.make_track_frame_sharded(cfg, mesh, "model", device="cuda"),
              "local": tracker.make_track_frame(cfg, device="cuda")}
-    out, launches = {}, {}
+    out, runs, launches = {}, {}, {}
     for name, step in steps.items():
         rs.launches = 0
         pu.launches = 0
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        h, out[name] = truth[0], []
-        for i in range(1, 4):
-            h, score = step(gen, h, frames[i])
-            out[name].append((h, score))
-        torch.cuda.synchronize()
+
+        def track():
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            h, got = truth[0], []
+            for i in range(1, 4):
+                h, score = step(gen, h, frames[i])
+                got.append((h, score))
+            return got
+
+        out[name], runs[name] = _build.kernel_runs(track, ("render_score_kernel",
+                                                           "pso_update_kernel"))
         launches[name] = (rs.launches, pu.launches)
     for (h, s), (hw, sw) in zip(out["sharded"], out["local"]):
         assert torch.equal(h, hw) and torch.equal(s, sw)
-    assert launches["sharded"] == launches["local"] == (3 * 11, 3 * 10)
+    # the sharded frame runs eagerly: each run on the card is a wrapper's
+    # launch; the local frame is a graph, run by its warm-up and 3
+    # replays, launched by the wrappers in the warm-up and the capture
+    assert launches["sharded"] == (3 * 11, 3 * 10)
+    assert runs["sharded"] == {"render_score_kernel": 3 * 11, "pso_update_kernel": 3 * 10}
+    assert runs["local"] == {"render_score_kernel": 4 * 11, "pso_update_kernel": 4 * 10}
+    assert launches["local"] == (2 * 11, 2 * 10)
 
 
 @pytest.mark.gpu
