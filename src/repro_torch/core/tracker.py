@@ -34,11 +34,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import handmodel, objective, pso
 from repro_torch.core.camera import Camera
 from repro_torch.core.stages import CLIENT, DataItem, Stage, StagedComputation
@@ -182,13 +182,20 @@ def make_track_frame_sharded(
 def _frame(cfg: TrackerConfig, wrap_eval, generator: Optional[torch.Generator],
            h_prev: torch.Tensor, depth: torch.Tensor, draws=None):
     """One frame on device tensors: the body that the eager step runs and
-    that the graph captures."""
-    d_o, mask = stage_preprocess(cfg, h_prev, depth)
-    eval_fn = wrap_eval(_make_eval_fn(cfg, d_o, mask))
+    that the graph captures.  Each stage is a ``torch.profiler`` range
+    while a session records, which names its kernels on the eager paths
+    (a replay runs no Python, so a graph's stages show only in its
+    warm-up and capture)."""
+    with obs.ranged("stage.preprocess"):
+        d_o, mask = stage_preprocess(cfg, h_prev, depth)
+        eval_fn = wrap_eval(_make_eval_fn(cfg, d_o, mask))
     spawn, gens = (None, None) if draws is None else draws
-    state, lo, hi = stage_spawn(cfg, generator, h_prev, eval_fn, spawn)
-    state = stage_optimize(cfg, state, lo, hi, eval_fn, generator, gens)
-    return stage_refine(cfg, state, h_prev)
+    with obs.ranged("stage.spawn"):
+        state, lo, hi = stage_spawn(cfg, generator, h_prev, eval_fn, spawn)
+    with obs.ranged("stage.optimize"):
+        state = stage_optimize(cfg, state, lo, hi, eval_fn, generator, gens)
+    with obs.ranged("stage.refine"):
+        return stage_refine(cfg, state, h_prev)
 
 
 def _track_frame_fn(cfg: TrackerConfig, device: torch.device, wrap_eval) -> Callable:
@@ -266,46 +273,56 @@ class FrameInputs:
 
 class _FrameGraph:
     """One frame captured into a CUDA graph, for one mode: drawn from
-    ``generator``, or given its draws (``generator`` None)."""
+    ``generator``, or given its draws (``generator`` None).  The graph's
+    first and last nodes record two timing events, which ``obs`` reads
+    for the replay's device time."""
 
     def __init__(self, cfg: TrackerConfig, device: torch.device,
                  generator: Optional[torch.Generator], h_prev, depth, draws):
-        depth = torch.as_tensor(depth)
-        self.generator = generator if draws is None else None
-        self.inputs = FrameInputs(cfg, device, depth.shape, draws)
-        self.inputs.load(h_prev, depth, draws)
-        # Warm-up, eagerly on a side stream: builds and loads the kernel
-        # library, the hand geometry's constants and the allocator's
-        # blocks, none of which may happen inside the capture.  It draws
-        # from a generator of its own, so the caller's does not move.
-        t0 = time.perf_counter()
-        warm_gen = (None if draws is not None
-                    else torch.Generator(device=device).manual_seed(0))
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            self.inputs.run(warm_gen)
-        torch.cuda.current_stream(device).wait_stream(side)
-        torch.cuda.synchronize(device)
-        t1 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        if draws is None and generator is not None:  # the default one registers itself
-            self.graph.register_generator_state(generator)
-        with torch.cuda.graph(self.graph):
-            self.h_next, self.score = self.inputs.run(generator)
-        t2 = time.perf_counter()
-        self.graph.instantiate()
-        torch.cuda.synchronize(device)
-        t3 = time.perf_counter()
-        self.cost_ms = {"warmup": (t1 - t0) * 1e3, "capture": (t2 - t1) * 1e3,
-                        "instantiate": (t3 - t2) * 1e3}
+        with obs.span("capture"):
+            depth = torch.as_tensor(depth)
+            self.generator = generator if draws is None else None
+            self.inputs = FrameInputs(cfg, device, depth.shape, draws)
+            self.inputs.load(h_prev, depth, draws)
+            # Warm-up, eagerly on a side stream: builds and loads the kernel
+            # library, the hand geometry's constants and the allocator's
+            # blocks, none of which may happen inside the capture.  It draws
+            # from a generator of its own, so the caller's does not move.
+            with obs.span("capture.warmup") as warmup:
+                warm_gen = (None if draws is not None
+                            else torch.Generator(device=device).manual_seed(0))
+                side = torch.cuda.Stream(device)
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side):
+                    self.inputs.run(warm_gen)
+                torch.cuda.current_stream(device).wait_stream(side)
+                # the events are created by a first record outside the capture
+                self.started, self.ended = (torch.cuda.Event(enable_timing=True, external=True)
+                                            for _ in range(2))
+                self.started.record()
+                self.ended.record()
+                torch.cuda.synchronize(device)
+            with obs.span("capture.record") as record:
+                self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+                if draws is None and generator is not None:  # the default one registers itself
+                    self.graph.register_generator_state(generator)
+                with torch.cuda.graph(self.graph):
+                    self.started.record()
+                    self.h_next, self.score = self.inputs.run(generator)
+                    self.ended.record()
+            with obs.span("capture.instantiate") as instantiate:
+                self.graph.instantiate()
+                torch.cuda.synchronize(device)
+        obs.count("frame.captures")
+        self.cost_ms = {"warmup": warmup.ms, "capture": record.ms,
+                        "instantiate": instantiate.ms}
 
     def __call__(self, generator, h_prev, depth, draws):
         if draws is None and generator is not self.generator:
             raise ValueError("this frame's graph draws from the generator it was captured "
                              "with; build another step for another generator")
-        self.inputs.load(h_prev, depth, draws)
-        self.graph.replay()
+        obs.frame(lambda: self.inputs.load(h_prev, depth, draws), self.graph.replay,
+                  (self.started, self.ended))
         return self.h_next.clone(), self.score.clone()
 
 
@@ -320,13 +337,17 @@ class FrameGraphs:
     silently).  A failed capture or replay raises CUDA's error.  Each
     call returns fresh tensors, which no later replay overwrites.
 
-    The kernel wrappers count a graph's launches where they make them: in
-    the warm-up, which runs the frame eagerly, and once more in the
-    capture.  A replay runs the graph's K1 and K2 nodes (N + 1 and N a
-    frame of N generations) without the wrappers, so the card's own
-    records count them (the profiler's, as ``chip_smoke.py`` does).
-    ``capture`` returns a graph's one-time cost: warm-up, capture and
-    instantiate, in ms of host time."""
+    Each call is a frame row of ``repro_torch.obs``: the host's input
+    copies (``frame.load``) and its enqueue of the replay
+    (``frame.launch``), and the replay's device time, sampled from the
+    graph's own timing events; it counts ``frame.replays``.  A capture is
+    a ``capture`` span holding the spans ``capture.warmup``,
+    ``capture.record`` and ``capture.instantiate``, and counts
+    ``frame.captures``; ``capture`` returns those three in ms of host
+    time.  The kernel wrappers' ``launches`` count the launches they make,
+    the warm-up's and the capture's, never a replay's; the card's own
+    records count a replay's K1 and K2 (N + 1 and N a frame of N
+    generations; ``kernels._build.kernel_runs``)."""
 
     def __init__(self, cfg: TrackerConfig, device: torch.device):
         self.cfg, self.device = cfg, device

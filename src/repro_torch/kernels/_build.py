@@ -26,6 +26,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
+
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -82,11 +84,19 @@ def build_log_path() -> pathlib.Path:
 
 
 def build() -> pathlib.Path:
-    """Compile the library if this source set has not been built yet;
-    return its path.  Raises with nvcc's output if a compile fails."""
+    """Compile the library if this source set has not been built yet
+    (the span ``kernels.build``, counted as ``kernels.builds``); return
+    its path.  Raises with nvcc's output if a compile fails."""
     target = library_path()
     if target.exists():
         return target
+    with obs.span("kernels.build"):
+        _compile(target)
+    obs.count("kernels.builds")
+    return target
+
+
+def _compile(target: pathlib.Path) -> None:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = pathlib.Path(tempfile.mkdtemp(prefix="build-", dir=BUILD_DIR))
@@ -117,7 +127,6 @@ def build() -> pathlib.Path:
         os.replace(tmp_so, target)  # atomic: concurrent builds agree
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return target
 
 
 def library() -> ctypes.CDLL:
