@@ -16,9 +16,13 @@ Phases (any failure exits non-zero and prints no result line):
      (every sum NaN) and clamp_t = inf (every pixel scored);
   4. K2 (pso_update) against its plain version at (64, 27) and (13, 27),
      without and with the quaternion projection fused (the tracker's
-     launch), and the main path's evaluation on the card (forward
-     kinematics + K1) against the plain objective on the CPU for the same
-     particles;
+     launch); FK (hand_spheres, the forward kinematics of the tracker's
+     evaluation) against handmodel.pack_spheres on the card at the main
+     path's population and with its angles beyond their limits and its
+     quaternions off the unit sphere (radii and padding bit for bit,
+     centers within 1e-6 m, the bit-equal elements counted); and the main
+     path's evaluation on the card (FK + K1) against the plain objective
+     on the CPU for the same particles;
   5. the main path: render a 30-frame 128x128 sequence and track it with
      ``Tracker`` at 64 particles x 30 generations from the true first
      pose, its step the whole frame captured into one CUDA graph
@@ -32,10 +36,10 @@ Phases (any failure exits non-zero and prints no result line):
      the graph and the eager step on the same draws (made on the card),
      h and score bit-equal on all 29 frames; last, the ``Tracker`` clip
      again, bit for bit with its first run, with the counts at 0 and
-     under the profiler, whose kernel records give K1 31 and K2 30 runs
-     on the card a frame (the warm-up's and each replay's) while the
-     wrappers count their launches, the warm-up's and the capture's, each
-     K2 with the projection fused;
+     under the profiler, whose kernel records give K1 31, K2 30 and FK
+     31 runs on the card a frame (the warm-up's and each replay's) while
+     the wrappers count their launches, the warm-up's and the capture's,
+     each K2 with the projection fused;
   6. two frames of each path, graph and eager, under torch.profiler:
      device busy/idle share (of the profiled wall time, and of phase 5's
      unprofiled median frame), device activities a frame, kernel time per
@@ -44,7 +48,9 @@ Phases (any failure exits non-zero and prints no result line):
   7. each kernel timed by CUDA events and profiler device time at the
      main path's shapes, beside its plain version and its bound on the
      card; K1 also on an all-ones mask, each with its kept-pixel count
-     and a bound counted over the kept pixels; K2 fused and alone;
+     and a bound counted over the kept pixels; K2 fused and alone; FK at
+     (64, 27) beside handmodel.pack_spheres (its device time and
+     activities a call) and its byte bound;
   8. the uplink: the phase-5 sequence streamed through the port's
      ``DeltaStreamEncoder`` -> ``DeltaStreamDecoder`` on the card at
      threshold 0 (every frame decodes bit-identical) and 0.01 m (every
@@ -189,8 +195,8 @@ Phases (any failure exits non-zero and prints no result line):
      begins, so that it runs on the host while a-d use the card: status ok, the
      arguments' bytes per device equal to the specs' sum, an all-reduce in
      the train step, one expert-parallel combine a layer in the decode;
- 20. one {"kernels": [...]} line with all twelve kernels and the seven
-     one-launch paths (K1's and K2's launches summed over the tracker,
+ 20. one {"kernels": [...]} line with all twelve kernels, the seven
+     one-launch paths and FK (K1's and K2's launches summed over the tracker,
      the offload grid and the sharded tracker: on the first two, whose
      steps are graphs, the runs on the card in the profiler's records),
      then the {"ok": ...} line last.
@@ -227,8 +233,10 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 FRAMES = 30  # rendered; the first is the known start pose, 29 are tracked
-# K1's and K2's kernels as the profiler's records name them
+# K1's and K2's kernels as the profiler's records name them, and forward
+# kinematics' (FK, csrc/hand_spheres.cu)
 KERNEL_NAMES = ("render_score_kernel", "pso_update_kernel")
+FK_NAME = "hand_spheres_kernel"
 K1_TOL_RTOL = 2e-5  # plus one silhouette flip: CLAMP_T / |B| + 1e-6
 K2_TOL = 1e-6
 
@@ -437,6 +445,31 @@ def phase_k2(torch, pu, device):
     return full_width_err
 
 
+def phase_fk(torch, hm, hand_spheres, hs):
+    """FK (csrc/hand_spheres.cu) against handmodel.pack_spheres on the
+    card, at the main path's population and with its angles pushed
+    beyond their limits and its quaternions off the unit sphere: radii
+    and padding bit for bit, centers within 1e-6 m.  Returns the largest
+    center error."""
+    wild = hs.clone()
+    wild[:, 7:] *= 3.0
+    wild[:, 3:7] *= torch.linspace(1e-6, 3.0, hs.shape[0], device=hs.device)[:, None]
+    err = 0.0
+    for label, h in (("the main path's population", hs), ("angles x3, |q| 1e-6..3", wild)):
+        got, want = hand_spheres.pack_spheres(h), hm.pack_spheres(h)
+        torch.cuda.synchronize()
+        check(_bit_equal(torch, got[..., 3], want[..., 3])
+              and _bit_equal(torch, got[:, hm.NUM_SPHERES_RAW:], want[:, hm.NUM_SPHERES_RAW:]),
+              f"FK on {label}: radii or padding differ from handmodel.pack_spheres")
+        c_err = _value_err(torch, got[..., :3], want[..., :3])
+        check(c_err <= 1e-6, f"FK on {label}: centers differ by {c_err:.3g} m")
+        same = int((got.view(torch.int32) == want.view(torch.int32)).sum())
+        log(f"[FK] {label}, ({h.shape[0]}, 27): {same} of {got.numel()} elements bit-equal "
+            f"to handmodel.pack_spheres on the card, centers within {c_err:.3g} m")
+        err = max(err, c_err)
+    return err
+
+
 def phase_eval_agrees(tracker_mod, hs, frames, truth):
     """The main path's population evaluation on the card (forward
     kinematics + K1 through ops.render_score) against the plain
@@ -582,12 +615,15 @@ def phase_main_path(torch, tracker_mod, rs, pu, frames, truth, device):
     _frame_stats(torch, "eager, draws given", e_out, e_ms, truth)
 
     # the counted run comes last: no timed run follows the profiler
+    from repro_torch.kernels import hand_spheres
+
     torch.cuda.synchronize()
-    rs.launches = 0
+    rs.launches = hand_spheres.launches = 0
     pu.launches = pu.launches_projected = 0
-    (counted_out, counted_ms, _), runs = _build.kernel_runs(run_tracker, KERNEL_NAMES)
+    (counted_out, counted_ms, _), runs = _build.kernel_runs(run_tracker,
+                                                            KERNEL_NAMES + (FK_NAME,))
     wrapped = (rs.launches, pu.launches, pu.launches_projected)
-    k1, k2 = runs[KERNEL_NAMES[0]], runs[KERNEL_NAMES[1]]
+    k1, k2, fk = runs[KERNEL_NAMES[0]], runs[KERNEL_NAMES[1]], runs[FK_NAME]
     log(f"[main] the profiled run: the card ran K1 {k1} times (expected {(1 + tracked) * (1 + gens)}"
         f": {1 + gens} a frame, the warm-up's and {tracked} replays') and K2 {k2} times "
         f"(expected {(1 + tracked) * gens}), by the profiler's kernel records; the wrappers "
@@ -599,11 +635,16 @@ def phase_main_path(torch, tracker_mod, rs, pu, frames, truth, device):
     check(k2 == (1 + tracked) * gens, "K2 runs on the card off the main path")
     check(wrapped == (2 * (1 + gens), 2 * gens, 2 * gens),
           f"the main path's wrappers launched K1, K2 and K2 projected {wrapped} times")
+    log(f"[main] FK: {fk} runs on the card (one an evaluation, as K1), "
+        f"{hand_spheres.launches} launches by its wrapper")
+    check(fk == k1 and hand_spheres.launches == wrapped[0],
+          f"FK ran {fk} times on the card and its wrapper launched it "
+          f"{hand_spheres.launches} times; K1 {k1} and {wrapped[0]}")
 
     differ = [i for i, ((h, s), (hc, sc)) in enumerate(zip(graph_out, counted_out), start=1)
               if not (torch.equal(h, hc) and torch.equal(s, sc))]
     check(not differ, f"the profiled run differs from the timed run at frames {differ}")
-    return {"k1": k1, "k2": k2}, paths
+    return {"k1": k1, "k2": k2, "fk": fk}, paths
 
 
 def phase_profile(torch, tracker_mod, frames, truth, device, paths):
@@ -754,7 +795,7 @@ def _time_k1(torch, rs, label, args, reps=200):
                 library_ms=None)
 
 
-def phase_timing(torch, rs, pu, inputs, device, k1_err, k2_err, launches):
+def phase_timing(torch, rs, pu, inputs, device, k1_err, k2_err, fk_err, launches):
     from repro_torch.kernels import _build
 
     spheres, rays, depth, mask = inputs
@@ -791,6 +832,7 @@ def phase_timing(torch, rs, pu, inputs, device, k1_err, k2_err, launches):
     k2_ops = 17 * 64 * d + 13 * 64
     k2_bytes = 4 * (7 * 64 * d + 3 * d)
     k2_bound, k2_by = _bound(k2_ops, k2_bytes)
+    fk = _time_fk(torch, spheres.shape[0], device)
     log(f"[time] K2 at (64, {d}), update + quaternion projection (the tracker's launch): "
         f"events {_us(k2_ms)}, device {_us(k2_dev)}, plain {_us(k2_plain)} (the update, then "
         f"normalize_configuration's ops); update alone: events {_us(k2_unfused_ms)}, device "
@@ -808,7 +850,35 @@ def phase_timing(torch, rs, pu, inputs, device, k1_err, k2_err, launches):
          "launches": launches["k2"], "max_abs_err": k2_err, "ms": k2_ms,
          "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None, "device_ms": k2_dev},
+        {"name": "hand_spheres", "route": "cuda",
+         "source": "src/repro_torch/csrc/hand_spheres.cu",
+         "replaces": "none: jnp ops in src/repro/core/handmodel.py:pack_spheres",
+         "launches": launches["fk"], "max_abs_err": fk_err, **fk},
     ]
+
+
+def _time_fk(torch, m, device):
+    """FK at the main path's (M, 27) population, timed by CUDA events and
+    profiler device time, beside handmodel.pack_spheres (its plain
+    version) and its byte bound; returns its kernels-line fields."""
+    from repro_torch.core import handmodel as hm
+    from repro_torch.kernels import hand_spheres
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    h = hm.normalize_configuration(torch.rand((m, 27), generator=gen, device=device))
+    fn = lambda: hand_spheres.pack_spheres(h)
+    ms = _time_ms(torch, fn, 500)
+    dev = _device_ms(torch, fn, 50, [FK_NAME])
+    plain_ms = _time_ms(torch, lambda: hm.pack_spheres(h), 50)
+    plain_dev, plain_acts, _ = _device_ms(torch, lambda: hm.pack_spheres(h), 10)
+    nbytes = 4 * (m * 27 + m * hm.NUM_SPHERES * 4)
+    bound, by = _bound(0, nbytes)
+    log(f"[time] FK at ({m}, 27): events {_us(ms)}, device {_us(dev)}, plain {_us(plain_ms)} "
+        f"(handmodel.pack_spheres: device {_us(plain_dev)} over {plain_acts:.0f} activities a "
+        f"call); bound {bound * 1e3:.4f} us ({by}: {nbytes} B / 3.35 TB/s); no single PyTorch "
+        f"call computes it")
+    return dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None)
 
 
 # ---------------------------------------------------------------------------
@@ -3100,6 +3170,7 @@ def main() -> int:
     from repro_torch.codec import wire
     from repro_torch.core.camera import BACKGROUND_DEPTH
     from repro_torch.kernels import _build
+    from repro_torch.kernels import hand_spheres
     from repro_torch.kernels import ops as ops_mod
     from repro_torch.kernels import pso_update as pu
     from repro_torch.kernels import render_score as rs
@@ -3118,13 +3189,15 @@ def main() -> int:
                          device, seed=1)
     k1_err = phase_k1(torch, rs, inputs)
     k2_err = phase_k2(torch, pu, device)
+    fk_err = phase_fk(torch, hm, hand_spheres,
+                      _particles(torch, hm, truth[0], cfg.pso.num_particles, device, seed=1))
     phase_eval_agrees(tracker_mod, _particles(torch, hm, truth[0], 16, device, seed=4),
                       frames, truth)
     launches, paths = phase_main_path(torch, tracker_mod, rs, pu, frames, truth, device)
     profiled = phase_profile(torch, tracker_mod, frames, truth, device, paths)
     log("[frame] " + json.dumps({label: {**paths[label], "profile": profiled[label]}
                                  for label in ("graph", "eager")}))
-    kernels = phase_timing(torch, rs, pu, inputs, device, k1_err, k2_err, launches)
+    kernels = phase_timing(torch, rs, pu, inputs, device, k1_err, k2_err, fk_err, launches)
 
     for key in ck.launches:
         ck.launches[key] = 0
@@ -3247,7 +3320,7 @@ def main() -> int:
     log(f"[profile] device activities per quantized closed-loop delta frame, old path -> new: "
         + ", ".join(f"{b} bits {a['old']} -> {a['new']}"
                     for b, a in timing["activities_per_frame"].items()))
-    check(len(kernels) == 19, f"{len(kernels)} kernels in the kernels line, expected 19")
+    check(len(kernels) == 20, f"{len(kernels)} kernels in the kernels line, expected 20")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -42,6 +42,7 @@ from repro_torch import obs
 from repro_torch.core import handmodel, objective, pso
 from repro_torch.core.camera import Camera
 from repro_torch.core.stages import CLIENT, DataItem, Stage, StagedComputation
+from repro_torch.kernels import hand_spheres
 from repro_torch.kernels import ops as kernel_ops
 
 
@@ -66,7 +67,7 @@ def _make_eval_fn(
         d_flat, m_flat = d_o.reshape(-1), mask.reshape(-1)
 
         def eval_fn(hs: torch.Tensor) -> torch.Tensor:
-            spheres = handmodel.pack_spheres(hs)
+            spheres = hand_spheres.pack_spheres(hs)
             return kernel_ops.render_score(spheres, rays, d_flat, m_flat)
 
         return eval_fn

@@ -7,6 +7,9 @@ written in CUDA C++ for Hopper (``csrc/``).
   ``ref`` holds the plain oracles.
 * ``pso_update`` — fused swarm velocity/position update (K2), and B
   swarms in one launch (K2b); ``pso_ref`` holds the plain oracles.
+* ``hand_spheres`` — forward kinematics (FK): a population's spheres in
+  one launch, the tracker's evaluation's input to K1; its plain version
+  is ``core.handmodel.pack_spheres``.
 * ``_build`` — compiles every ``csrc/*.cu`` (these kernels and the
   codec's, ``repro_torch.codec.kernels``) with nvcc and binds the
   library via ctypes.

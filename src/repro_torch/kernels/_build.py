@@ -47,6 +47,7 @@ _SIGNATURES = {
     "significant_bit_widths_launch": [_P] * 2 + [_I] * 5 + [_P],
     "quant_encode_launch": [_P] * 4 + [_I] * 5 + [_F] * 4 + [_P],
     "quant_decode_launch": [_P] * 4 + [_I] * 7 + [_F] * 2 + [_P],
+    "hand_spheres_launch": [_P] * 3 + [_I, _P],
 }
 
 _library: Optional[ctypes.CDLL] = None

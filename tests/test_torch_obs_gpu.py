@@ -10,7 +10,8 @@ Elsewhere the tests skip with that reason.  Held here: ``frame.replays``
 counts the calls; ``FrameGraphs.capture`` returns its three costs as
 its spans read them; the device time read from the graph's own timing
 events lies inside the time between two events recorded on the stream
-around the same replay, within 2% of it, and is at least 90% of the
+around the same replay (the card busy before the first, so the host's
+enqueue falls outside), within 2% of it, and is at least 90% of the
 profiler's busy time of the same frames (inputs and draws) replayed
 under it; and under the profiler each frame's ``frame.launch`` range
 starts before the first record of that frame's replay, on the device
@@ -73,15 +74,24 @@ def _run(step, frames, truth, draws):
     return h
 
 
+# Cycles the card spins before each bracketed replay (~0.5 ms at the
+# H100's 1.98 GHz): longer than the host takes to enqueue the replay.
+HOLD_CYCLES = 1_000_000
+
+
 class Bracketed:
     """A captured graph whose every replay is bracketed by two timing
-    events on the stream, outside the graph."""
+    events on the stream, outside the graph.  The card spins before the
+    first event while the host enqueues the replay, so the bracket holds
+    the replay's span on the card and not the host's launch (~20 us,
+    which at a ~1 ms frame would be 2% of it)."""
 
     def __init__(self, graph):
         self.graph, self.pairs = graph, []
 
     def replay(self):
         pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda._sleep(HOLD_CYCLES)
         pair[0].record()
         self.graph.replay()
         pair[1].record()
