@@ -1,14 +1,15 @@
 """The comparison that decides ``correct``.
 
 After the window has closed, a sample of its frames, drawn from the
-seed, is judged against the plain reference (``chipbench.reference``),
-on the device, in the configuration's precision.  For each sampled frame
-the reference takes what the client handed the program (the previous
-pose, the depth map, the frame's draws) and what the program answered
-(the new pose h_next and its score):
+seed, is judged against the plain reference of the configuration's
+model (``chipbench/models/``), on the device, in the configuration's
+precision.  For each sampled frame the reference takes what the client
+handed the program (the previous pose, the depth map, the frame's
+draws) and what the program answered (the new pose h_next and its
+score):
 
 * ``score_gap``: |score - E_D(g)|, where g is the swarm's best pose that
-  the program's smoothing step turned into h_next (``solution_of``) and
+  the program's last step turned into h_next (``solution_of``) and
   E_D the reference's objective on the frame.  The program's score claims
   to be E_D of its best pose; this holds it to that, whatever path its
   search took.
@@ -35,7 +36,6 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from chipbench.loadgen import Frame
-from chipbench.reference.frame import Reference, solution_of
 
 
 def sample(frames: Sequence[Frame], count: int, seed: int) -> List[Frame]:
@@ -47,16 +47,16 @@ def sample(frames: Sequence[Frame], count: int, seed: int) -> List[Frame]:
 
 
 def numbers(frames: Sequence[Frame], depth: torch.Tensor, pool: torch.Tensor,
-            ref: Reference) -> Dict[str, float]:
-    """The compared numbers over ``frames``."""
+            model, ref) -> Dict[str, float]:
+    """The compared numbers over ``frames``; ``ref`` is ``model``'s
+    ``Reference``."""
     score_gaps, optimum_gaps = [], []
-    smoothing = ref.cfg.smoothing
     for f in frames:
         h_prev = torch.as_tensor(f.h_prev, device=depth.device)
         h_next = torch.as_tensor(f.h_next, device=depth.device)
         d = depth[f.clip_index]
         _, ref_score = ref.frame(h_prev, d, pool[f.draw_index])
-        e_prog = float(ref.score(solution_of(h_next, h_prev, smoothing), h_prev, d))
+        e_prog = float(ref.score(model.solution_of(ref.cfg, h_next, h_prev), h_prev, d))
         score_gaps.append(abs(f.score - e_prog))
         optimum_gaps.append(e_prog - float(ref_score))
     if not all(math.isfinite(x) for x in score_gaps + optimum_gaps):

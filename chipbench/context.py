@@ -3,16 +3,17 @@
 from __future__ import annotations
 
 import dataclasses
+from types import ModuleType
 from typing import List, Optional
 
 from chipbench.loadgen import Frame
-from chipbench.reference.frame import FrameConfig
 from chipbench.trace import Segment
 
 
 @dataclasses.dataclass(frozen=True)
 class Context:
-    cfg: FrameConfig
+    cfg: object  # the model's frame configuration
+    model: ModuleType  # the cell's model (chipbench/models/), which counts the work
     frames: List[Frame]  # the measured window's, unprofiled
     start: float  # the window on the host clock: the first frame's due time
     end: float  # the last pose on the host

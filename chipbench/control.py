@@ -8,16 +8,14 @@ from __future__ import annotations
 
 import torch
 
-from chipbench.reference.frame import FrameConfig, Reference
-
 
 class ControlStep:
     """The frame step's call signature, (generator, h_prev, depth, draws)
-    -> (h_next, score), on the plain frame in ``dtype``."""
+    -> (h_next, score), on ``model``'s plain frame in ``dtype``."""
 
-    def __init__(self, cfg: FrameConfig, device: torch.device | str,
+    def __init__(self, model, cfg, device: torch.device | str,
                  dtype: torch.dtype = torch.bfloat16):
-        self.ref = Reference(cfg, device, dtype)
+        self.ref = model.Reference(cfg, device, dtype)
 
     def __call__(self, generator, h_prev, depth, draws):
         (u_pos, u_vel), gens = draws

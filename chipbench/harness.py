@@ -5,7 +5,10 @@ tests drive it too.
 
 The program enters only through the configuration's ``entry``: the
 function that builds the frame step and its configuration's classes,
-by module and name.  Everything else here is the benchmark's own.
+by module and name.  Everything else here is the benchmark's own; what
+belongs to one tracker model (its frame's sizes, clip, mask rule,
+reference and work counts) comes from the cell's ``model``
+(``chipbench/models/``).
 """
 
 from __future__ import annotations
@@ -19,11 +22,11 @@ import sys
 import time
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
-from chipbench import check, clip, loadgen, manifest, trace, work
+from chipbench import check, loadgen, manifest, trace
 from chipbench.context import Context
-from chipbench.reference.frame import FrameConfig, Reference
 
 # Top-level modules the process may not hold once the window has closed:
 # the reference package and its stack.
@@ -63,13 +66,11 @@ def truncated_step(config: dict, device: torch.device, generations: int) -> Call
     return truncated
 
 
-def make_inputs(cell: manifest.Cell, frame_cfg: FrameConfig, seed: int,
-                device: torch.device):
+def make_inputs(cell: manifest.Cell, frame_cfg, seed: int, device: torch.device):
     """(depth, truth, draws pool) on the device, from the seed: the clip's
     noise, then the pool, from one generator."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    depth, truth = clip.make_clip(clip.ClipConfig.from_traffic(cell.traffic), frame_cfg.camera,
-                                  frame_cfg.background, gen)
+    depth, truth = cell.model.make_clip(cell.traffic, frame_cfg, gen)
     pool = torch.rand((cell.traffic["draw_pool"], *frame_cfg.draws_shape), generator=gen,
                       device=device)
     return depth, truth, pool
@@ -82,14 +83,15 @@ def forbidden_modules(modules=None) -> List[str]:
     return sorted({name.split(".")[0] for name in held} & set(FORBIDDEN))
 
 
-def kept_pixels(frames, depth: torch.Tensor, half_width: float) -> List[int]:
-    """The kept pixels of each frame, by the mask rule on its inputs."""
+def kept_pixels(model, frame_cfg, frames, depth: torch.Tensor) -> List[int]:
+    """The kept pixels of each frame, by the model's mask rule on its
+    inputs."""
     out: List[int] = []
     for i in range(0, len(frames), KEPT_BLOCK):
         block = frames[i:i + KEPT_BLOCK]
         d = depth[torch.as_tensor([f.clip_index for f in block], device=depth.device)]
-        z = torch.as_tensor([float(f.h_prev[2]) for f in block], device=depth.device)
-        out += [int(k) for k in work.kept_pixels(d, z, half_width)]
+        h = torch.as_tensor(np.stack([f.h_prev for f in block]), device=depth.device)
+        out += [int(k) for k in model.kept_pixels(frame_cfg, d, h)]
     return out
 
 
@@ -104,7 +106,7 @@ def power_limit() -> str:
     return done.stdout.strip() or f"not read ({done.stderr.strip()})"
 
 
-def measure(cell: manifest.Cell, step: Callable, frame_cfg: FrameConfig, seed: int,
+def measure(cell: manifest.Cell, step: Callable, frame_cfg, seed: int,
             seconds: float, traced: bool, device: torch.device, t_start: float):
     """Set-up's end, the window and, traced, the segment.  Returns
     (context, metrics, device record, breakdown, inputs)."""
@@ -135,14 +137,15 @@ def measure(cell: manifest.Cell, step: Callable, frame_cfg: FrameConfig, seed: i
     breakdown = None
     if traced:
         segment = trace.record(load, cell.traffic["profile_frames"])
-        half = frame_cfg.bbox_half_width
-        kept, seg_kept = kept_pixels(frames, depth, half), kept_pixels(segment.frames, depth, half)
+        kept = kept_pixels(cell.model, frame_cfg, frames, depth)
+        seg_kept = kept_pixels(cell.model, frame_cfg, segment.frames, depth)
         dev["busy_s"] = trace.busy_ns(segment) / 1e9
         dev["window_s"] = segment.seconds
         breakdown = {"device_ops": trace.device_ops(segment),
                      "idle_gaps": trace.idle_gaps(segment)}
     peaks = json.loads((manifest.HERE / "peaks.json").read_text()).get(dev["kind"])
-    ctx = Context(frame_cfg, frames, start, end, start - t_start, kept, segment, seg_kept, peaks)
+    ctx = Context(frame_cfg, cell.model, frames, start, end, start - t_start, kept, segment,
+                  seg_kept, peaks)
     kind, entries = ("per_layer", cell.per_layer) if traced else ("end_to_end", cell.end_to_end)
     metrics = {}
     for m in entries:
@@ -158,7 +161,7 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, traced: bool,
     """One run: the program's step (through ``wrap``, if given) measured,
     then judged; returns the result line.  The reference runs after the
     program's state is freed."""
-    frame_cfg = FrameConfig.from_file(cell.config)
+    frame_cfg = cell.model.frame_config(cell.config)
     step = build_step(cell.config, device)
     if wrap is not None:
         step = wrap(step)
@@ -203,9 +206,9 @@ def judge_run(cell, frame_cfg, frames, depth, pool, seed, device):
     """The check on a sample of the window's frames: (values, within the
     limits, {name: {value, limit}})."""
     t = time.perf_counter()
-    ref = Reference(frame_cfg, device)
+    ref = cell.model.Reference(frame_cfg, device)
     sampled = check.sample(frames, cell.traffic["check_frames"], seed)
-    values = check.numbers(sampled, depth, pool, ref)
+    values = check.numbers(sampled, depth, pool, cell.model, ref)
     ok, compared = check.judge(values, cell.limits)
     log(f"[check] {len(sampled)} sampled frames against the reference in "
         f"{time.perf_counter() - t:.3f} s: " + ", ".join(f"{k} {v!r}" for k, v in values.items()))

@@ -39,8 +39,8 @@ class Frame:
     index: int  # the client's frame count since its start
     clip_index: int
     draw_index: int
-    h_prev: np.ndarray  # (27,) float32
-    h_next: np.ndarray  # (27,) float32
+    h_prev: np.ndarray  # (P,) float32, P the model's parameters
+    h_next: np.ndarray  # (P,) float32
     score: float
     due: float
     start: float  # the call into the step
@@ -60,8 +60,9 @@ class Load:
     """The clients of one traffic mix in front of the program's step.
 
     ``step(generator, h_prev, depth, draws)`` is the program's frame on
-    given draws; ``depth`` (T, H, W) and ``truth`` (T, 27) the clip on the
-    device; ``pool`` (P, 1 + G, 2, N, 27) the draws."""
+    given draws; ``depth`` (T, H, W) and ``truth`` (T, P) the clip on the
+    device, P the model's parameters; ``pool`` (draw_pool, 1 + G, 2, N, P)
+    the draws."""
 
     def __init__(self, step: Callable, traffic: dict, depth: torch.Tensor,
                  truth: torch.Tensor, pool: torch.Tensor):

@@ -5,6 +5,9 @@ mix; the harness reads, relative to the checkout's root:
 
 * the configuration's ``file`` (``chipbench/configs/<name>.json``), and
   the limits of its correctness check, ``chipbench/limits/<name>.json``;
+* the tracker model the configuration names by its ``"model"`` key,
+  ``chipbench/models/<model>.py``: the benchmark's frozen yardstick for
+  the program that ``"entry"`` names (see below);
 * the mix, ``chipbench/traffic/<traffic>.json``;
 * one reader for each metric the cell reports: an end-to-end metric's in
   ``chipbench/end_to_end/<name>.py``, a per-layer metric's in
@@ -13,8 +16,28 @@ mix; the harness reads, relative to the checkout's root:
   ``glue_ms.edge``) has one reader.  A reader is a module with
   ``read(ctx) -> float | None``.
 
-So a cell, a mix, a configuration or a metric is added as new files and
-entries; no file that is there changes.
+So a cell, a mix, a configuration, a model or a metric is added as new
+files and entries; no file that is there changes.
+
+A model is a module that the harness, the check and the readers use
+through these names only, so that nothing outside it knows the tracker's
+parameters, spheres or mask:
+
+* ``frame_config(config) -> cfg``: the frame's sizes from the
+  configuration file; ``cfg.draws_shape`` is one frame's PSO draws,
+  (1 + G, 2, N, P) for P parameters;
+* ``make_clip(traffic, cfg, generator) -> (depth (T, H, W), truth (T, P))``:
+  the clip every client sees, its noise drawn from ``generator``;
+* ``kept_pixels(cfg, depth, h_prev)``: how many pixels the frame scores,
+  for frames ``depth`` (B, H, W) and their previous poses (B, P);
+* ``Reference(cfg, device, dtype)``, keeping ``cfg``: the plain frame,
+  ``frame(h_prev, depth, draws) -> (h_next, score)``, and its objective,
+  ``score(h, h_prev, depth)``;
+* ``solution_of(cfg, h_next, h_prev)``: the swarm's best pose that the
+  frame's last step turned into ``h_next``;
+* ``k1_ops(cfg, kept)`` and ``frame_ops(cfg, kept)``: the fp32
+  operations of a frame's population evaluations (K1) and of the whole
+  frame, over ``kept`` pixels.
 """
 
 from __future__ import annotations
@@ -24,6 +47,7 @@ import importlib.util
 import json
 import pathlib
 import re
+from types import ModuleType
 from typing import Callable, Dict, List
 
 HERE = pathlib.Path(__file__).resolve().parent
@@ -39,6 +63,7 @@ class Cell:
     chips: int
     config_name: str
     config: dict
+    model: ModuleType  # chipbench/models/<the configuration's "model">.py
     traffic_name: str
     traffic: dict
     limits: Dict[str, float]
@@ -54,21 +79,45 @@ def _reports(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
 
+def _load(path: pathlib.Path, module_name: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _model(config: dict, path: pathlib.Path, root: pathlib.Path) -> ModuleType:
+    """The model that the configuration read from ``path`` names.  Raises
+    ``ValueError`` where it names none, or no valid name, and
+    ``FileNotFoundError`` where the model has no file."""
+    name = config.get("model")
+    if not isinstance(name, str) or not NAME.fullmatch(name):
+        raise ValueError(f"the configuration {path} names no model: its \"model\" key is "
+                         f"{name!r}, and has to name a file chipbench/models/<model>.py")
+    model_path = root / HERE.name / "models" / f"{name}.py"
+    if not model_path.exists():
+        raise FileNotFoundError(f"the configuration {path} names the model {name!r}, "
+                                f"which has no file {model_path}")
+    return _load(model_path, f"chipbench_model_{name}")
+
+
 def load_cell(name: str, root: pathlib.Path = ROOT) -> Cell:
-    """The cell ``name`` with its files read.  Raises ``KeyError`` for a
-    cell the benchmark does not name and ``FileNotFoundError`` for a
-    missing file."""
+    """The cell ``name`` with its files read and its model loaded.  Raises
+    ``KeyError`` for a cell the benchmark does not name,
+    ``FileNotFoundError`` for a missing file and ``ValueError`` for a
+    configuration that names no model."""
     bench = load_benchmark(root)
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
         raise KeyError(f"no cell {name!r}; the benchmark has {sorted(cells)}")
     w = cells[name]
-    config = {c["name"]: c for c in bench["configs"]}[w["config"]]
+    entry = {c["name"]: c for c in bench["configs"]}[w["config"]]
     pkg = root / HERE.name
+    path = root / entry["file"]
+    config = json.loads(path.read_text())
     return Cell(
-        name=name, chips=int(w["chips"]), config_name=w["config"],
-        config=json.loads((root / config["file"]).read_text()),
-        traffic_name=w["traffic"],
+        name=name, chips=int(w["chips"]), config_name=w["config"], config=config,
+        model=_model(config, path, root), traffic_name=w["traffic"],
         traffic=json.loads((pkg / "traffic" / f"{w['traffic']}.json").read_text()),
         limits=json.loads((pkg / "limits" / f"{w['config']}.json").read_text()),
         end_to_end=[m for m in bench["end_to_end"] if _reports(m, name)],
@@ -88,10 +137,7 @@ def reader(kind: str, name: str, root: pathlib.Path = ROOT) -> Callable:
     path = reader_path(kind, name, root)
     if not path.exists():
         raise FileNotFoundError(f"no reader for the metric {name!r} ({path})")
-    spec = importlib.util.spec_from_file_location(f"chipbench_reader_{kind}_{name}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _load(path, f"chipbench_reader_{kind}_{name}").read
 
 
 def problems(bench: dict) -> List[str]:

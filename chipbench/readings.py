@@ -46,14 +46,14 @@ def main(argv=None) -> int:
 
     from chipbench import harness, manifest
     from chipbench.control import ControlStep
-    from chipbench.reference.frame import FrameConfig
 
     cell = manifest.load_cell(args.workload)
     device = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
-    frame_cfg = FrameConfig.from_file(cell.config)
+    frame_cfg = cell.model.frame_config(cell.config)
     program = harness.build_step(cell.config, device)
     stand_ins = {"program": (args.seeds, lambda: program),
-                 "control": (args.control_seeds, lambda: ControlStep(frame_cfg, device)),
+                 "control": (args.control_seeds,
+                             lambda: ControlStep(cell.model, frame_cfg, device)),
                  "truncated": (args.truncated_seeds, lambda: harness.truncated_step(
                      cell.config, device, args.truncated_generations))}
     runs = []

@@ -14,7 +14,6 @@ from chipbench import manifest, stats, trace, work
 from chipbench.context import Context
 from chipbench.loadgen import Frame
 from chipbench.reference import hand, render
-from chipbench.reference.frame import FrameConfig
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 H = np.zeros(27, np.float32)
@@ -41,7 +40,7 @@ def _camera_clip(service_s, stall_at=None, stall_s=0.0, frames=600, rate=30.0):
 
 def _ctx(frames, **kw):
     start, end = min(f.due for f in frames), max(f.done for f in frames)
-    return Context(cfg=None, frames=frames, start=start, end=end, setup_s=7.5, **kw)
+    return Context(cfg=None, model=None, frames=frames, start=start, end=end, setup_s=7.5, **kw)
 
 
 def _e2e(name, ctx):
@@ -141,15 +140,18 @@ def test_segment_busy_idle_and_breakdown():
 
 
 def _cfg():
-    return FrameConfig(render.Camera(8, 8, 7.0, 7.0, 3.5, 3.5), 64, 30, 0.7298, 1.49618,
-                       1.49618, 0.5, 0.1, 0.25, 0.15, 0.25, 0.3, 10.0)
+    """hand128-64x30's frame at an 8x8 camera, and its model."""
+    cell = manifest.load_cell("hand128.cam30")
+    camera = {"width": 8, "height": 8, "fx": 7.0, "fy": 7.0, "cx": 3.5, "cy": 3.5}
+    return cell.model.frame_config({**cell.config, "camera": camera}), cell.model
 
 
 def test_per_layer_readers_on_a_synthetic_segment():
     seg = _segment()
     frames = [_frame(0, i, 0, 0, 0, service_ms=50e-6) for i in range(4)]  # 50 ns each
     peaks = {"fp32_flops_per_s": 67e12}
-    ctx = Context(_cfg(), frames, 0.0, 1.0, 1.0, kept=[750] * 4, segment=seg,
+    cfg, model = _cfg()
+    ctx = Context(cfg, model, frames, 0.0, 1.0, 1.0, kept=[750] * 4, segment=seg,
                   segment_kept=[750, 750], peaks=peaks)
 
     def read(name):
@@ -163,10 +165,10 @@ def test_per_layer_readers_on_a_synthetic_segment():
     assert read("k1_roofline.edge") == pytest.approx(k1)
     mfu = 4 * work.frame_ops(64, 30, 750, 48) / 67e12 / (4 * 50e-9) * 100
     assert read("frame_mfu.cam30") == pytest.approx(mfu)
-    bare = Context(_cfg(), frames, 0.0, 1.0, 1.0)  # untraced: nothing to read
+    bare = Context(cfg, model, frames, 0.0, 1.0, 1.0)  # untraced: nothing to read
     for name in ("device_idle_pct", "glue_ms", "k1_roofline", "frame_mfu"):
         assert manifest.reader("per_layer", name)(bare) is None
-    unknown_card = Context(_cfg(), frames, 0.0, 1.0, 1.0, kept=[1] * 4, segment=seg,
+    unknown_card = Context(cfg, model, frames, 0.0, 1.0, 1.0, kept=[1] * 4, segment=seg,
                            segment_kept=[1, 1], peaks=None)
     assert manifest.reader("per_layer", "k1_roofline")(unknown_card) is None
     assert math.isfinite(manifest.reader("per_layer", "glue_ms")(unknown_card))

@@ -17,7 +17,6 @@ import torch
 
 from chipbench import harness, manifest
 from chipbench.control import ControlStep
-from chipbench.reference.frame import FrameConfig
 
 CELLS = ("hand128.cam30", "hand128.edge16")
 SEED = 2**31 + 11
@@ -103,7 +102,7 @@ def test_a_broken_timed_path_is_not_correct(name, fault):
 @pytest.mark.parametrize("name", CELLS)
 def test_the_control_is_not_correct(name):
     cell = _small(name)
-    control = ControlStep(FrameConfig.from_file(cell.config), "cpu")
+    control = ControlStep(cell.model, cell.model.frame_config(cell.config), "cpu")
     result = _run(cell, wrap=lambda step: control)
     assert not result["correct"], result["compared"]
 

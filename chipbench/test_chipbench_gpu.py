@@ -11,7 +11,6 @@ import torch
 
 from chipbench import harness, manifest
 from chipbench.control import ControlStep
-from chipbench.reference.frame import FrameConfig
 
 
 @pytest.fixture
@@ -27,7 +26,7 @@ def test_program_correct_and_control_not_on_the_card(card, name):
     cell = manifest.load_cell(name)
     program = harness.run_cell(cell, 2**31 + 5, 2.0, False, card, time.perf_counter())
     assert program["correct"], program["compared"]
-    control = ControlStep(FrameConfig.from_file(cell.config), card)
+    control = ControlStep(cell.model, cell.model.frame_config(cell.config), card)
     broken = harness.run_cell(cell, 2**31 + 6, 2.0, False, card, time.perf_counter(),
                               wrap=lambda step: control)
     assert not broken["correct"], broken["compared"]

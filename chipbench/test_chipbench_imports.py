@@ -1,7 +1,8 @@
 """No module of the benchmark imports JAX or the JAX reference package,
-and the plain reference imports nothing of the program: each imported
-module's top-level name is compared whole, since the program's name
-begins with the reference's."""
+and the yardstick (the plain reference, the models, the clip, the work
+counts, the check and the control) imports nothing of the program: each
+imported module's top-level name is compared whole, since the program's
+name begins with the reference's."""
 
 import ast
 import pathlib
@@ -31,8 +32,10 @@ def test_no_jax_and_no_reference_package(path):
     assert not _top_level_imports(path) & FORBIDDEN
 
 
-@pytest.mark.parametrize("path", [p for p in MODULES if "reference" in p.parts or
-                                  p.name in ("clip.py", "work.py", "check.py", "control.py")],
+YARDSTICK = ("reference", "models", "clip.py", "work.py", "check.py", "control.py")
+
+
+@pytest.mark.parametrize("path", [p for p in MODULES if p.relative_to(HERE).parts[0] in YARDSTICK],
                          ids=lambda p: str(p.relative_to(HERE)))
 def test_the_yardstick_imports_nothing_of_the_program(path):
     assert not _top_level_imports(path) & PROGRAM

@@ -88,6 +88,36 @@ def test_every_file_is_found_by_name():
         manifest.load_cell("no.such.cell", ROOT)
 
 
+def test_both_configurations_load_the_one_hand_model():
+    for w in BENCH["workloads"]:
+        cell = manifest.load_cell(w["name"], ROOT)
+        assert cell.config["model"] == "one_hand", w["name"]
+        assert pathlib.Path(cell.model.__file__) == ROOT / "chipbench/models/one_hand.py"
+        assert callable(cell.model.frame_config) and callable(cell.model.Reference)
+
+
+@pytest.mark.parametrize("model, error", [(None, ValueError), ("no_such_model", FileNotFoundError),
+                                          ("../configs/x", ValueError)],
+                         ids=["no_model_key", "missing_model_file", "not_a_name"])
+def test_a_configuration_that_names_no_model_file_is_refused_at_load(tmp_path, model, error):
+    config = json.loads((ROOT / "chipbench/configs/hand128-64x30.json").read_text())
+    del config["model"]
+    if model is not None:
+        config["model"] = model
+    path = tmp_path / "chipbench/configs/hand128-64x30.json"
+    path.parent.mkdir(parents=True)
+    path.write_text(json.dumps(config))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    with pytest.raises(error) as raised:
+        manifest.load_cell("hand128.cam30", tmp_path)
+    message = str(raised.value)
+    assert str(path) in message
+    if error is ValueError:
+        assert '"model"' in message
+    else:
+        assert str(tmp_path / "chipbench/models/no_such_model.py") in message
+
+
 def _digest(root):
     return {p.relative_to(root): hashlib.sha256(p.read_bytes()).hexdigest()
             for p in sorted(root.rglob("*")) if p.is_file() and "__pycache__" not in p.parts}

@@ -103,7 +103,7 @@ def recorded(monkeypatch):
 
 
 def _ctx(frames):
-    return Context(cfg=None, frames=frames, start=min(f.due for f in frames),
+    return Context(cfg=None, model=None, frames=frames, start=min(f.due for f in frames),
                    end=max(f.done for f in frames), setup_s=7.5)
 
 
